@@ -67,6 +67,24 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// int8 x int8 -> int32, m16n8k32. An s8 k32 fragment has the byte layout
+// of a bf16 k16 one, so the same ldmatrix addressing feeds both.
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Byte offset of (row, 16-byte chunk) in a swizzled tile whose rows are
+// `width` bytes wide (chunk ^ row&7: the 8 rows one ldmatrix reads land in
+// 8 different bank groups). width is a multiple of 128.
+__device__ __forceinline__ int swz8(int row, int chunk, int width) {
+  return row * width + ((chunk ^ (row & 7)) << 4);
+}
+
 // Element offset of (row, first channel of 16-byte chunk `chunk`) in a
 // swizzled tile whose rows are `width` bf16 wide.
 __device__ __forceinline__ int swz(int row, int chunk, int width) {

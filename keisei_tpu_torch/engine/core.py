@@ -3,7 +3,8 @@
 Every function takes a leading batch dimension N where the JAX module took
 a single environment and was vmapped. Legality is the same dense (81, 139)
 perspective-space action mask; the geometry comes from the numpy tables of
-`keisei_tpu.engine.tables`, copied to the device once (`EngineTables`).
+`engine/tables.py` (the port's copy of the JAX package's tables), copied
+to the device once (`EngineTables`).
 
 The JAX module reformulates every per-square lookup as a one-hot matmul for
 the TPU's matrix unit. Here lookups are plain gathers, and the slider
@@ -23,9 +24,9 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
-from keisei_tpu.engine import tables as T
-from keisei_tpu.engine import types as TY
-from keisei_tpu.engine import zobrist as Z
+from . import tables as T
+from . import types as TY
+from . import zobrist as Z
 
 
 def _lanes_to_i64(lanes: np.ndarray) -> np.ndarray:

@@ -9,9 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from keisei_tpu.engine import types as TY
-
 from ..engine import core as C
+from ..engine import types as TY
 
 
 class EnvCore:

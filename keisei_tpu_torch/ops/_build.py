@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-nvcc compiles every source under keisei_tpu_torch/csrc into one shared
-library with a plain C interface, loaded with ctypes:
+nvcc compiles every source under keisei_tpu_torch/csrc to an object file,
+one nvcc process per source, all started together, then links them into
+one shared library with a plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <build>/libkeisei_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c csrc/<name>.cu -o <build>/<name>.o        (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <build>/libkeisei_kernels.so *.o
 
 The library goes to `build/kernels-<hash>/` at the checkout's root (listed
 in .gitignore), keyed by a hash of the sources and flags, so an edited
@@ -25,8 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libkeisei_kernels.so"
 
 _P = ctypes.c_void_p
@@ -35,6 +37,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "keisei_conv3x3_hwbc": [_P, _P, _P, _I, _I, _I, _P],
     "keisei_fused_gpbias_block": [_P] * 13 + [_I, _I, _I, _I, _P],
+    "keisei_quantized_gpbias_block": [_P] * 17 + [_I] * 5 + [_P],
+    "keisei_mma_rate": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -58,6 +62,24 @@ def build_dir() -> Path:
     return BUILD_ROOT / f"kernels-{h.hexdigest()[:16]}"
 
 
+def _run_all(cmds: list[list[str]], log_dir: Path) -> list[tuple[list[str], int, str]]:
+    """Run the commands concurrently, each writing to a file of its own
+    (no pipe can fill); (cmd, returncode, output) of each."""
+    runs = []
+    for i, cmd in enumerate(cmds):
+        out = open(log_dir / f"cmd{i}.{os.getpid()}.log", "w+")
+        runs.append((cmd, subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, cwd=CSRC),
+                     out))
+    results = []
+    for cmd, proc, out in runs:
+        rc = proc.wait()
+        with out:
+            out.seek(0)
+            results.append((cmd, rc, out.read()))
+        os.unlink(out.name)
+    return results
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if this source hash has no library yet) and load the kernels."""
@@ -65,16 +87,23 @@ def load_library() -> ctypes.CDLL:
     lib_path = out_dir / LIB_NAME
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
+        nvcc, tag = _nvcc(), os.getpid()
+        srcs = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [out_dir / f"{s.stem}.{tag}.o" for s in srcs]
         t0 = time.monotonic()
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
-        log = (f"$ {' '.join(cmd)}\n# {time.monotonic() - t0:.1f} s, rc {proc.returncode}\n"
-               f"{proc.stdout}{proc.stderr}")
+        runs = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                         for s, o in zip(srcs, objs)], out_dir)
+        tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+        if all(rc == 0 for _, rc, _ in runs):
+            runs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *[str(o) for o in objs]]], out_dir)
+        log = "".join(f"$ {' '.join(cmd)}\n# rc {rc}\n{out}" for cmd, rc, out in runs)
+        log += f"# {time.monotonic() - t0:.1f} s in all\n"
         (out_dir / "build.log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log}")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if any(rc != 0 for _, rc, _ in runs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():

@@ -53,7 +53,8 @@ class TrainingConfig:
     lr_plateau_patience: int = 50
     lr_min: float = 1e-5
     # "auto"/"flax": the eager nn.Module forward; "fused": the hand-written
-    # CUDA kernels (ops/); "int8": not ported yet
+    # bf16 CUDA kernels (ops/); "int8": the int8 trunk (ops/qblock.py; needs
+    # num_games divisible by 32)
     rollout_forward: str = "auto"
     # accepted for file compatibility; the port's periodic saves are blocking
     async_checkpoint: bool = True

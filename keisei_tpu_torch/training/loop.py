@@ -19,13 +19,12 @@ from types import SimpleNamespace
 
 import torch
 
-from keisei_tpu.training.observability import TrainingObserver
-
 from ..env.vec_env import EnvCore
 from ..models.registry import build_model, get_model_contract
 from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint, load_meta, prune_checkpoints, save_checkpoint
 from .config import Config
+from .observability import TrainingObserver
 from .ppo import (entropy_coeff_schedule, get_learning_rate, make_optimizer, make_ppo_update,
                   set_learning_rate)
 from .rollout import make_selfplay_rollout
@@ -133,17 +132,16 @@ class SelfPlayTrainer:
     def _rollout_forward_fn(self, mode: str):
         """The rollout's inference path (TrainingConfig.rollout_forward).
 
-        "auto"/"flax" -> the eager nn.Module forward. "fused" -> the CUDA
-        kernels of ops/ (on a CPU device the same path runs their plain
-        versions). "int8" is not ported yet.
+        "auto"/"flax" -> the eager nn.Module forward. "fused" -> the bf16
+        CUDA kernels of ops/, "int8" -> the int8 trunk (ops/qblock.py); on a
+        CPU device both run their kernels' plain versions. "int8" also needs
+        num_games divisible by 32 (the quantization tile).
         """
         if mode in ("auto", "flax"):
             return None
-        if mode == "int8":
-            raise NotImplementedError("rollout_forward='int8' is not yet ported "
-                                      "to keisei_tpu_torch")
-        from ..models.fused_infer import make_fused_forward
+        from ..models.fused_infer import make_fused_forward, make_quantized_forward
         from ..ops.fused_block import SUPPORTED_C
+        from ..ops.qblock import int8_batch_tile
 
         arch = self.config.model.architecture
         cuda_ok = self.device.type != "cuda" or self.model_cfg.channels in SUPPORTED_C
@@ -152,7 +150,10 @@ class SelfPlayTrainer:
                 f"rollout_forward={mode!r} needs architecture=se_resnet and, on a CUDA "
                 f"device, channels in {SUPPORTED_C} (got arch={arch!r}, "
                 f"channels={self.model_cfg.channels}, device={self.device})")
-        return make_fused_forward(self.model_cfg)
+        if mode == "fused":
+            return make_fused_forward(self.model_cfg)
+        int8_batch_tile(self.config.training.num_games)  # fail here, not in the first rollout
+        return make_quantized_forward(self.model_cfg)
 
     # -- checkpoints ----------------------------------------------------------
 

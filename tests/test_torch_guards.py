@@ -1,6 +1,8 @@
-"""Guards of the port: no JAX anywhere in keisei_tpu_torch, no silent device
-fallback, and clear refusals for what is not ported yet."""
+"""Guards of the port: no JAX and nothing of the JAX package anywhere in
+keisei_tpu_torch or chip_smoke.py, no silent device fallback, and clear
+refusals for what is not ported yet."""
 
+import ast
 import subprocess
 import sys
 import textwrap
@@ -18,9 +20,13 @@ TINY_MODEL = {"architecture": "se_resnet",
                          "se_reduction": 4}}
 
 
+REPO = Path(__file__).resolve().parents[1]
+
+
 def test_port_imports_no_jax():
     """A fresh interpreter imports every keisei_tpu_torch module; none of
-    jax, flax, optax or orbax may be loaded afterwards."""
+    jax, flax, optax or orbax, and no module of the JAX package (top-level
+    name exactly keisei_tpu), may be loaded afterwards."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import keisei_tpu_torch
@@ -28,13 +34,33 @@ def test_port_imports_no_jax():
                                                         "keisei_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "optax", "orbax"))
+        banned = ("jax", "flax", "optax", "orbax", "keisei_tpu")
+        bad = sorted(k for k in sys.modules if k.split(".")[0] in banned)
         print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 20 else 0)
+        sys.exit(1 if bad or len(names) < 30 else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", *sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "keisei_tpu_torch").rglob("*.py"))])
+def test_sources_import_neither_jax_nor_the_jax_package(path):
+    """An AST scan of every import statement, including those inside
+    functions, which a fresh interpreter would not reach."""
+    bad = _imported_roots(REPO / path) & {"jax", "flax", "optax", "orbax", "keisei_tpu"}
+    assert not bad, f"{path} imports {sorted(bad)}"
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
@@ -55,10 +81,19 @@ def test_cuda_kernels_refuse_cpu_fallback_on_other_devices():
 
 
 def test_int8_forward_not_yet_ported(tmp_path):
-    cfg = config_from_dict({"model": TINY_MODEL, "training": {
-        "num_games": 2, "rollout_forward": "int8", "checkpoint_dir": str(tmp_path)}})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        SelfPlayTrainer(cfg, device="cpu")
+    """rollout_forward="int8" is ported: it resolves to the quantized
+    forward, and a batch the quantization tile cannot divide is refused when
+    the trainer is built, not in its first rollout."""
+    from keisei_tpu_torch.models.fused_infer import QuantizedForward
+
+    def trainer(games):
+        return SelfPlayTrainer(config_from_dict({"model": TINY_MODEL, "training": {
+            "num_games": games, "rollout_forward": "int8",
+            "checkpoint_dir": str(tmp_path)}}), device="cpu")
+
+    with pytest.raises(ValueError, match="divisible by 32"):
+        trainer(2)
+    assert isinstance(trainer(32)._rollout_forward_fn("int8"), QuantizedForward)
 
 
 def test_league_mode_not_yet_ported():
