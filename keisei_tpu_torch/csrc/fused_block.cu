@@ -21,13 +21,34 @@
 // weights from L2 per block (151 MB per block at B=64). conv2's
 // accumulators stay in registers through the SE: a warp owns all 96 rows of
 // its channels, so the SE mean is a warp reduction. See conv_common.cuh.
+//
+// The kernel is templated on a stop stage. kFull is the block above. The
+// others replace the TPU bisect harness scripts/debug_fused_block.py
+// (run_stage: the block without SE, cut after a stage, that stage written
+// in f32): they run the same code up to the stage, write it as (9, 9, B, C)
+// f32 and return:
+//   kConv1   conv1's raw f32 accumulator
+//   kBnRelu  relu(conv1 * s1 + b1)
+//   kPool    the f32 mean of x over the 81 squares (before the bf16
+//            rounding the FC input takes), broadcast over the squares
+//   kGpBias  relu(conv1 * s1 + b1) + g2, before the bf16 store of h
+//   kConv2   conv2's raw f32 accumulator over bf16(h), no bn2, no SE
 #include <math.h>
 
 #include "conv_common.cuh"
 
 namespace keisei {
 
-template <int NT>
+enum Stage { kConv1 = 0, kBnRelu = 1, kPool = 2, kGpBias = 3, kConv2 = 4, kFull = 5 };
+
+// The f32 stage output (9, 9, B, C): channels n, n+1 of square m.
+__device__ __forceinline__ void store_stage(void* out, int m, int board, int B, int C, int n,
+                                            float v0, float v1) {
+  *reinterpret_cast<float2*>(static_cast<float*>(out) + ((size_t)m * B + board) * C + n) =
+      make_float2(v0, v1);
+}
+
+template <int NT, int STAGE>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_block_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1,
                    const __nv_bfloat16* __restrict__ w2, const float* __restrict__ bn,
@@ -35,7 +56,7 @@ fused_block_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
                    const __nv_bfloat16* __restrict__ gp2w, const float* __restrict__ gp2b,
                    const __nv_bfloat16* __restrict__ se1w, const float* __restrict__ se1b,
                    const __nv_bfloat16* __restrict__ se2w, const float* __restrict__ se2b,
-                   __nv_bfloat16* __restrict__ out, int B, int gpc, int sec) {
+                   void* __restrict__ out, int B, int gpc, int sec) {
   constexpr int C = 64 * NT;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -58,36 +79,44 @@ fused_block_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
   __syncthreads();
 
   // --- global-pool bias from the block input ---
-  for (int c = tid; c < C; c += blockDim.x) {
-    float sum = 0.f, mx = -INFINITY;
-    for (int m = 0; m < 81; ++m) {
-      const float v = __bfloat162float(x_s[swz(m, c >> 3, C) + (c & 7)]);
-      sum += v;
-      mx = fmaxf(mx, v);
+  if constexpr (STAGE >= kPool) {
+    for (int c = tid; c < C; c += blockDim.x) {
+      float sum = 0.f, mx = -INFINITY;
+      for (int m = 0; m < 81; ++m) {
+        const float v = __bfloat162float(x_s[swz(m, c >> 3, C) + (c & 7)]);
+        sum += v;
+        mx = fmaxf(mx, v);
+      }
+      const float mean = sum / 81.f;
+      if constexpr (STAGE == kPool) {
+        float* o = static_cast<float*>(out) + (size_t)board * C + c;
+        for (int m = 0; m < 81; ++m) o[(size_t)m * B * C] = mean;
+        continue;
+      }
+      float var = 0.f;
+      for (int m = 0; m < 81; ++m) {
+        const float d = __bfloat162float(x_s[swz(m, c >> 3, C) + (c & 7)]) - mean;
+        var += d * d;
+      }
+      pool_s[c] = bf16_round(mean);
+      pool_s[C + c] = bf16_round(mx);
+      pool_s[2 * C + c] = bf16_round(sqrtf(var / 81.f + 1e-10f));
     }
-    const float mean = sum / 81.f;
-    float var = 0.f;
-    for (int m = 0; m < 81; ++m) {
-      const float d = __bfloat162float(x_s[swz(m, c >> 3, C) + (c & 7)]) - mean;
-      var += d * d;
+    __syncthreads();
+    for (int j = tid; j < gpc; j += blockDim.x) {
+      float a = gp1b[j];
+      for (int k = 0; k < 3 * C; ++k) a += pool_s[k] * __bfloat162float(gp1w[(size_t)k * gpc + j]);
+      g_s[j] = bf16_round(fmaxf(a, 0.f));
     }
-    pool_s[c] = bf16_round(mean);
-    pool_s[C + c] = bf16_round(mx);
-    pool_s[2 * C + c] = bf16_round(sqrtf(var / 81.f + 1e-10f));
+    __syncthreads();
+    for (int n = tid; n < C; n += blockDim.x) {
+      float a = gp2b[n];
+      for (int j = 0; j < gpc; ++j) a += g_s[j] * __bfloat162float(gp2w[(size_t)j * C + n]);
+      g2_s[n] = a;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int j = tid; j < gpc; j += blockDim.x) {
-    float a = gp1b[j];
-    for (int k = 0; k < 3 * C; ++k) a += pool_s[k] * __bfloat162float(gp1w[(size_t)k * gpc + j]);
-    g_s[j] = bf16_round(fmaxf(a, 0.f));
-  }
-  __syncthreads();
-  for (int n = tid; n < C; n += blockDim.x) {
-    float a = gp2b[n];
-    for (int j = 0; j < gpc; ++j) a += g_s[j] * __bfloat162float(gp2w[(size_t)j * C + n]);
-    g2_s[n] = a;
-  }
-  __syncthreads();
+  if constexpr (STAGE == kPool) return;
 
   // --- conv1 + bn1 + relu + pool bias -> h (bf16, shared memory) ---
   float acc[kMTiles][NT][4];
@@ -102,18 +131,46 @@ fused_block_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int n = nq + nt * 8;
-        const float h0 = fmaxf(acc[mt][nt][2 * half] * bn[n] + bn[C + n], 0.f) + g2_s[n];
-        const float h1 =
-            fmaxf(acc[mt][nt][2 * half + 1] * bn[n + 1] + bn[C + n + 1], 0.f) + g2_s[n + 1];
+        if constexpr (STAGE == kConv1) {
+          store_stage(out, m, board, B, C, n, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+          continue;
+        }
+        float h0 = fmaxf(acc[mt][nt][2 * half] * bn[n] + bn[C + n], 0.f);
+        float h1 = fmaxf(acc[mt][nt][2 * half + 1] * bn[n + 1] + bn[C + n + 1], 0.f);
+        if constexpr (STAGE == kBnRelu) {
+          store_stage(out, m, board, B, C, n, h0, h1);
+          continue;
+        }
+        h0 += g2_s[n];
+        h1 += g2_s[n + 1];
+        if constexpr (STAGE == kGpBias) {
+          store_stage(out, m, board, B, C, n, h0, h1);
+          continue;
+        }
         *reinterpret_cast<__nv_bfloat162*>(h_s + swz(m, n >> 3, C) + (n & 7)) =
             __floats2bfloat162_rn(h0, h1);
       }
     }
   }
+  if constexpr (STAGE < kConv2) return;
   __syncthreads();
 
   // --- conv2 + bn2 -> z (registers), SE mean by warp reduction ---
   conv_taps<NT>(h_s, C, w2, C, wbuf, acc);
+  if constexpr (STAGE == kConv2) {
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = mt * 16 + (lane >> 2) + half * 8;
+        if (m >= 81) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          store_stage(out, m, board, B, C, nq + nt * 8, acc[mt][nt][2 * half],
+                      acc[mt][nt][2 * half + 1]);
+      }
+    return;
+  }
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int n = nq + nt * 8;
@@ -168,7 +225,7 @@ fused_block_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
     for (int half = 0; half < 2; ++half) {
       const int m = mt * 16 + (lane >> 2) + half * 8;
       if (m >= 81) continue;
-      __nv_bfloat16* dst = out + ((size_t)m * B + board) * C;
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + ((size_t)m * B + board) * C;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int n = nq + nt * 8;
@@ -184,7 +241,7 @@ fused_block_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
   }
 }
 
-template <int NT>
+template <int NT, int STAGE>
 static int launch_fused_block(const void* x, const void* w1, const void* w2, const void* bn,
                               const void* gp1w, const void* gp1b, const void* gp2w,
                               const void* gp2b, const void* se1w, const void* se1b,
@@ -193,17 +250,16 @@ static int launch_fused_block(const void* x, const void* w1, const void* w2, con
   constexpr int C = 64 * NT;
   const size_t smem = sizeof(__nv_bfloat16) * (2 * (size_t)kRows * C + 2 * kKStage * C) +
                       sizeof(float) * (7 * (size_t)C + gpc + sec);
-  cudaError_t e = cudaFuncSetAttribute(fused_block_kernel<NT>,
+  cudaError_t e = cudaFuncSetAttribute(fused_block_kernel<NT, STAGE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   typedef const __nv_bfloat16* BP;
   typedef const float* FP;
-  fused_block_kernel<NT><<<B, kThreads, smem, stream>>>(
+  fused_block_kernel<NT, STAGE><<<B, kThreads, smem, stream>>>(
       static_cast<BP>(x), static_cast<BP>(w1), static_cast<BP>(w2), static_cast<FP>(bn),
       static_cast<BP>(gp1w), static_cast<FP>(gp1b), static_cast<BP>(gp2w),
       static_cast<FP>(gp2b), static_cast<BP>(se1w), static_cast<FP>(se1b),
-      static_cast<BP>(se2w), static_cast<FP>(se2b), static_cast<__nv_bfloat16*>(out), B, gpc,
-      sec);
+      static_cast<BP>(se2w), static_cast<FP>(se2b), out, B, gpc, sec);
   return (int)cudaGetLastError();
 }
 
@@ -223,11 +279,35 @@ int keisei_fused_gpbias_block(const void* x, const void* w1, const void* w2, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || gpc < 1 || sec < 1 || gpc > 4096 || sec > 4096) return (int)cudaErrorInvalidValue;
   if (C == 256)
-    return keisei::launch_fused_block<4>(x, w1, w2, bn, gp1w, gp1b, gp2w, gp2b, se1w, se1b,
-                                         se2w, se2b, out, B, gpc, sec, s);
+    return keisei::launch_fused_block<4, keisei::kFull>(x, w1, w2, bn, gp1w, gp1b, gp2w, gp2b,
+                                                         se1w, se1b, se2w, se2b, out, B, gpc,
+                                                         sec, s);
   if (C == 128)
-    return keisei::launch_fused_block<2>(x, w1, w2, bn, gp1w, gp1b, gp2w, gp2b, se1w, se1b,
-                                         se2w, se2b, out, B, gpc, sec, s);
+    return keisei::launch_fused_block<2, keisei::kFull>(x, w1, w2, bn, gp1w, gp1b, gp2w, gp2b,
+                                                         se1w, se1b, se2w, se2b, out, B, gpc,
+                                                         sec, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The block without SE cut after `stage` (0 conv1, 1 bnrelu, 2 pool, 3
+// gpbias, 4 conv2): the same operands as above up to gp2b -> out (9, 9, B, C)
+// f32. C must be 128 or 256. Returns a cudaError_t.
+int keisei_fused_block_stage(const void* x, const void* w1, const void* w2, const void* bn,
+                             const void* gp1w, const void* gp1b, const void* gp2w,
+                             const void* gp2b, void* out, int B, int C, int gpc, int stage,
+                             void* stream) {
+  using namespace keisei;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || gpc < 1 || gpc > 4096) return (int)cudaErrorInvalidValue;
+#define KEISEI_STAGE(NT, ST)                                                               \
+  if (C == 64 * NT && stage == ST)                                                       \
+    return launch_fused_block<NT, ST>(x, w1, w2, bn, gp1w, gp1b, gp2w, gp2b, nullptr,    \
+                                      nullptr, nullptr, nullptr, out, B, gpc, 0, s);
+  KEISEI_STAGE(4, kConv1) KEISEI_STAGE(4, kBnRelu) KEISEI_STAGE(4, kPool)
+  KEISEI_STAGE(4, kGpBias) KEISEI_STAGE(4, kConv2)
+  KEISEI_STAGE(2, kConv1) KEISEI_STAGE(2, kBnRelu) KEISEI_STAGE(2, kPool)
+  KEISEI_STAGE(2, kGpBias) KEISEI_STAGE(2, kConv2)
+#undef KEISEI_STAGE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -25,15 +25,6 @@ namespace keisei {
 constexpr int kProbeK = 256;     // K = N
 constexpr int kProbeRows = 128;  // rows of A per CTA: 2 warps of 64 rows x 4 warps of 64 columns
 
-__device__ __forceinline__ void mma32(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                      uint32_t b1) {
-  mma_s8(c, a[0], a[1], a[2], a[3], b0, b1);
-}
-__device__ __forceinline__ void mma32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                      uint32_t b1) {
-  mma_bf16(c, a[0], a[1], a[2], a[3], b0, b1);
-}
-
 __device__ __forceinline__ int parity(int v) { return v & 1; }
 __device__ __forceinline__ int parity(float v) { return __float2int_rz(v) & 1; }
 

@@ -35,10 +35,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types; every one returns a cudaError_t as int
 SIGNATURES = {
-    "keisei_conv3x3_hwbc": [_P, _P, _P, _I, _I, _I, _P],
+    "keisei_conv3x3_bpc": [_P, _P, _P, _I, _I, _I, _I, _P],
     "keisei_fused_gpbias_block": [_P] * 13 + [_I, _I, _I, _I, _P],
+    "keisei_fused_block_stage": [_P] * 9 + [_I] * 4 + [_P],
     "keisei_quantized_gpbias_block": [_P] * 17 + [_I] * 5 + [_P],
+    "keisei_qblock_part": [_I] + [_P] * 6 + [_I] * 3 + [_P],
     "keisei_mma_rate": [_P, _P, _P, _I, _I, _I, _P],
+    "keisei_tiled_mm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "keisei_dot_chain": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -12,32 +12,51 @@ hand-written sm_90a kernel (csrc/fused_block.cu), which keeps x, h and every
 intermediate vector on the SM, or raises; only a CPU tensor takes the plain
 version `fused_gpbias_block_reference`. `fused_gpbias_block.launches` counts
 kernel launches.
+
+`fused_block_stage` is the block without SE cut after one stage, written in
+f32 (counterpart of scripts/debug_fused_block.py:run_stage, the TPU bisect
+harness, whose Pallas kernel it replaces): the same kernel source
+templated on a stop stage, so a stage that disagrees with its plain version
+`fused_block_stage_reference` points at the production code.
+`fused_block_stage.launches` counts launches per stage.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from . import _build
 from .conv3x3 import conv3x3_taps_f32
 
-__all__ = ["fused_gpbias_block", "fused_gpbias_block_reference"]
+__all__ = ["fused_gpbias_block", "fused_gpbias_block_reference", "fused_block_stage",
+           "fused_block_stage_reference", "STAGES"]
 
 SUPPORTED_C = (128, 256)
+# the bisect harness's stop stages, in kernel order
+STAGES = ("conv1", "bnrelu", "pool", "gpbias", "conv2")
 
 
-def _check(x, w1, w2, bn, gp1_w, gp1_b, gp2_w, gp2_b, se1_w, se1_b, se2_w, se2_b) -> None:
+def _check(x, w1, w2, bn, gp1_w, gp1_b, gp2_w, gp2_b, se1_w=None, se1_b=None, se2_w=None,
+           se2_b=None) -> None:
+    """Shapes, devices and types of the block's operands; the stage harness
+    passes no SE weights."""
     if x.dim() != 4 or tuple(x.shape[:2]) != (9, 9):
         raise ValueError(f"expected x (9, 9, B, C), got {tuple(x.shape)}")
     c = x.shape[3]
-    gpc, sec = gp1_w.shape[-1], se1_w.shape[-1]
+    gpc = gp1_w.shape[-1]
     shapes = {
         "w1": (w1, (3, 3, c, c)), "w2": (w2, (3, 3, c, c)), "bn_affine": (bn, (4, c)),
         "gp1_w": (gp1_w, (3 * c, gpc)), "gp1_b": (gp1_b, (gpc,)),
         "gp2_w": (gp2_w, (gpc, c)), "gp2_b": (gp2_b, (c,)),
-        "se1_w": (se1_w, (c, sec)), "se1_b": (se1_b, (sec,)),
-        "se2_w": (se2_w, (sec, 2 * c)), "se2_b": (se2_b, (2 * c,)),
     }
+    if se1_w is not None:
+        sec = se1_w.shape[-1]
+        shapes.update({
+            "se1_w": (se1_w, (c, sec)), "se1_b": (se1_b, (sec,)),
+            "se2_w": (se2_w, (sec, 2 * c)), "se2_b": (se2_b, (2 * c,)),
+        })
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
@@ -50,6 +69,20 @@ def _check(x, w1, w2, bn, gp1_w, gp1_b, gp2_w, gp2_b, se1_w, se1_b, se2_w, se2_b
         raise TypeError(f"x must be bfloat16, got {x.dtype}")
 
 
+def _fc(v, w, b):
+    """An in-block FC: input rounded to bf16, f32 sums."""
+    return v.to(torch.bfloat16).float() @ w.float() + b
+
+
+def _gp_bias(xf, gp1_w, gp1_b, gp2_w, gp2_b):
+    """(81, B, C) f32 block input -> the (B, C) global-pool bias g2."""
+    mean = xf.mean(dim=0)
+    amax = xf.amax(dim=0)
+    var = ((xf - mean[None]) ** 2).mean(dim=0)
+    pool = torch.cat([mean, amax, torch.sqrt(var + 1e-10)], dim=1)
+    return _fc(torch.relu(_fc(pool, gp1_w, gp1_b)), gp2_w, gp2_b)
+
+
 def fused_gpbias_block_reference(x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b,
                                  se1_w, se1_b, se2_w, se2_b) -> torch.Tensor:
     """Plain version with the TPU kernel's rounding points: FC inputs and h
@@ -57,25 +90,15 @@ def fused_gpbias_block_reference(x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_
     _check(x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b, se1_w, se1_b, se2_w, se2_b)
     n, ch = x.shape[2], x.shape[3]
     bf16 = torch.bfloat16
-
-    def fc(v, w, b):
-        return v.to(bf16).float() @ w.float() + b
-
     xf = x.float().reshape(81, n, ch)
     s1, b1, s2, b2 = bn_affine
     h = torch.relu(conv3x3_taps_f32(x, w1).reshape(81, n, ch) * s1 + b1)
-
-    mean = xf.mean(dim=0)
-    amax = xf.amax(dim=0)
-    var = ((xf - mean[None]) ** 2).mean(dim=0)
-    pool = torch.cat([mean, amax, torch.sqrt(var + 1e-10)], dim=1)
-    g = torch.relu(fc(pool, gp1_w, gp1_b))
-    h = h + fc(g, gp2_w, gp2_b)[None]
+    h = h + _gp_bias(xf, gp1_w, gp1_b, gp2_w, gp2_b)[None]
 
     z = conv3x3_taps_f32(h.reshape(9, 9, n, ch).to(bf16), w2).reshape(81, n, ch)
     z = z * s2 + b2
-    se = torch.relu(fc(z.mean(dim=0), se1_w, se1_b))
-    se = fc(se, se2_w, se2_b)
+    se = torch.relu(_fc(z.mean(dim=0), se1_w, se1_b))
+    se = _fc(se, se2_w, se2_b)
     y = z * torch.sigmoid(se[:, :ch])[None] + se[:, ch:][None] + xf
     return torch.relu(y).reshape(9, 9, n, ch).to(bf16)
 
@@ -110,3 +133,58 @@ def fused_gpbias_block(x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b,
 
 
 fused_gpbias_block.launches = 0
+
+
+def fused_block_stage_reference(x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b, *,
+                                stage: str) -> torch.Tensor:
+    """Plain version of the stage harness: the block without SE up to
+    `stage`, that stage as (9, 9, B, C) f32 (conv1 and conv2 the raw f32
+    sums, conv2's over bf16(h); pool the f32 mean broadcast over the 81
+    squares; gpbias h before its bf16 rounding)."""
+    _check(x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b)
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    n, ch = x.shape[2], x.shape[3]
+    xf = x.float().reshape(81, n, ch)
+    if stage == "pool":
+        return xf.mean(dim=0).expand(81, n, ch).reshape(9, 9, n, ch).contiguous()
+    h = conv3x3_taps_f32(x, w1)
+    if stage == "conv1":
+        return h
+    h = torch.relu(h * bn_affine[0] + bn_affine[1])
+    if stage == "bnrelu":
+        return h
+    h = h + _gp_bias(xf, gp1_w, gp1_b, gp2_w, gp2_b).reshape(1, 1, n, ch)
+    if stage == "gpbias":
+        return h
+    return conv3x3_taps_f32(h.to(torch.bfloat16), w2)
+
+
+def fused_block_stage(x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b, *,
+                      stage: str) -> torch.Tensor:
+    """The fused block without SE cut after `stage` (one of STAGES): x (9, 9,
+    B, C) bf16 and the block's weights up to gp2_b -> (9, 9, B, C) f32."""
+    args = (x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b)
+    _check(*args)
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    if x.device.type == "cpu":
+        return fused_block_stage_reference(*args, stage=stage)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    n, ch = x.shape[2], x.shape[3]
+    if ch not in SUPPORTED_C:
+        raise ValueError(f"CUDA fused block takes C in {SUPPORTED_C}, got {ch}")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("all fused block operands must be contiguous")
+    lib = _build.load_library()
+    out = torch.empty((9, 9, n, ch), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.keisei_fused_block_stage(*[t.data_ptr() for t in args], out.data_ptr(), n, ch,
+                                       gp1_w.shape[1], STAGES.index(stage), stream)
+    _build.check(lib, err, f"fused_block_stage({stage}) launch")
+    fused_block_stage.launches[stage] += 1
+    return out
+
+
+fused_block_stage.launches = Counter()

@@ -63,7 +63,9 @@ def quantize_conv_weights(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _tile_scales(amax: torch.Tensor) -> torch.Tensor:
-    return torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    # a tensor divisor: CUDA divides by a Python scalar through its
+    # reciprocal, one ulp away from the IEEE quotient the kernel takes
+    return torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
 
 
 def _quantize_tiles(v: torch.Tensor, bt: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -120,12 +122,11 @@ def _check(xq, sx, wq1, wq2, bn, gp1_w, gp1_b, gp2_w, gp2_b, se1_w, se1_b, se2_w
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
-def _qconv_taps(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _qconv_taps_exact(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """SAME 3x3 conv of (9, 9, B, Cin) int8 by (3, 3, Cout, Cin) int8 ->
-    (81, B, Cout) f32. The sums are exact integers: they are taken in f64
-    (exact below 2**53; int8 products on the CPU would wrap in int8 and CUDA
-    has no integer matmul in torch), then rounded to f32 once, as the int32
-    accumulator is converted."""
+    (81, B, Cout) f64 holding the exact integer sums (f64 is exact below
+    2**53; int8 products on the CPU would wrap in int8 and CUDA has no
+    integer matmul in torch)."""
     n, cin = q.shape[2], q.shape[3]
     xp = F.pad(q.double(), (0, 0, 0, 0, 1, 1, 1, 1))
     wd = w.double()
@@ -133,7 +134,13 @@ def _qconv_taps(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for di in range(3):
         for dj in range(3):
             acc += xp[di:di + 9, dj:dj + 9].reshape(81 * n, cin) @ wd[di, dj].t()
-    return acc.float().reshape(81, n, -1)
+    return acc.reshape(81, n, -1)
+
+
+def _qconv_taps(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The exact sums rounded to f32 once, as the int32 accumulator is
+    converted."""
+    return _qconv_taps_exact(q, w).float()
 
 
 def quantized_gpbias_block_reference(xq, sx, wq1, wq2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b,

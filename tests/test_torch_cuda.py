@@ -13,18 +13,34 @@ only where an f32 sum taken in another order (pool, FCs, SE mean) moves a
 value across a rounding boundary: at most 1 level apart, >= 99% identical,
 scales within rtol 1e-4 (the same bound as the CPU test against JAX). The
 tensor-core probe computes in exact integers and must match bit for bit.
+
+The probes' kernels: the boards-per-CTA conv at the bf16 bound above; the
+fused block's stage kernels within 1e-4 of max |ref| for the f32 stages
+before any bf16 rounding (conv1, bnrelu, pool) and at rtol = atol = 0.05
+after one (gpbias, conv2); the stripped int8 block's novpu and gemmonly
+equal (parity bits of exact integer sums), convs and vpuonly (which round
+through a tile quantization) at most 1 level apart and >= 99% identical,
+bf16gemm at the bf16 bound; the
+dot chain exact in int8 and at the bf16 bound in bf16; tiled_mm exact in
+int8 and within 1e-4 of max |ref| in bf16 (f32 output).
 """
 
 import pytest
 import torch
 
 from keisei_tpu_torch.ops import _build
-from keisei_tpu_torch.ops.conv3x3 import conv3x3_hwbc, conv3x3_hwbc_reference
-from keisei_tpu_torch.ops.fused_block import fused_gpbias_block, fused_gpbias_block_reference
+from keisei_tpu_torch.ops.conv3x3 import conv3x3_bpc, conv3x3_hwbc, conv3x3_hwbc_reference
+from keisei_tpu_torch.ops.fused_block import (STAGES, fused_block_stage,
+                                              fused_block_stage_reference, fused_gpbias_block,
+                                              fused_gpbias_block_reference)
 from keisei_tpu_torch.ops.qblock import (pack_quantized, quantize_conv_weights,
-                                         quantized_gpbias_block,
-                                         quantized_gpbias_block_reference)
+                                         quantized_gpbias_block, quantized_gpbias_block_reference)
+from keisei_tpu_torch.scripts import profile_qblock_parts as qparts
+from keisei_tpu_torch.scripts.debug_fused_block import EXACT_STAGES, stage_inputs
+from keisei_tpu_torch.scripts.profile_conv_alternatives import (mm_inputs, tiled_mm,
+                                                                tiled_mm_reference)
 from keisei_tpu_torch.scripts.profile_int8_mma import mma_chain, mma_chain_reference, probe_inputs
+from keisei_tpu_torch.utils.timing import graph_ms
 
 pytestmark = pytest.mark.cuda
 
@@ -136,3 +152,90 @@ def test_mma_probe_matches_plain(dev, dtype):
     torch.cuda.synchronize()
     assert mma_chain.launches == before + 1
     assert torch.equal(got, mma_chain_reference(a, b, 5))
+
+
+@pytest.mark.parametrize("bpc", [1, 2, 4])
+@pytest.mark.parametrize("b,cin,cout", [(64, 256, 256), (7, 128, 128), (6, 50, 256)])
+def test_conv3x3_bpc_matches_plain(dev, bpc, b, cin, cout):
+    g = torch.Generator(device="cpu").manual_seed(cin + bpc)
+    x = torch.randn(9, 9, b, cin, generator=g).to(torch.bfloat16).to(dev)
+    w = (torch.randn(3, 3, cin, cout, generator=g) / (9 * cin) ** 0.5).to(torch.bfloat16).to(dev)
+    before = conv3x3_bpc.launches[bpc]
+    got = conv3x3_bpc(x, w, boards_per_cta=bpc)
+    torch.cuda.synchronize()
+    assert conv3x3_bpc.launches[bpc] == before + 1
+    torch.testing.assert_close(got.float(), conv3x3_hwbc_reference(x, w).float(), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("stage", STAGES)
+@pytest.mark.parametrize("b,c", [(32, 128), (5, 256)])
+def test_fused_block_stage_matches_plain(dev, stage, b, c):
+    args = stage_inputs(b, c, 64, dev)
+    before = fused_block_stage.launches[stage]
+    got = fused_block_stage(*args, stage=stage)
+    torch.cuda.synchronize()
+    assert fused_block_stage.launches[stage] == before + 1
+    ref = fused_block_stage_reference(*args, stage=stage)
+    if stage in EXACT_STAGES:
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    else:
+        torch.testing.assert_close(got, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("variant", qparts.VARIANTS)
+@pytest.mark.parametrize("b,c", [(64, 256), (32, 128)])
+def test_qblock_part_matches_plain(dev, variant, b, c):
+    args = qparts.part_inputs(variant, b, c, dev, seed=b)
+    before = qparts.qblock_part.launches[variant]
+    got = qparts.qblock_part(variant, *args, batch_tile=32)
+    torch.cuda.synchronize()
+    assert qparts.qblock_part.launches[variant] == before + 1
+    qparts.compare_to_plain(variant, got, qparts.qblock_part_reference(variant, *args, batch_tile=32))
+
+
+def test_qblock_full_kernel_times_come_from_the_trace(dev):
+    args = qparts.full_block_args(64, 256, 32, dev)
+    before = quantized_gpbias_block.launches
+    times = qparts.full_kernel_ms(args, 32, iters=3)
+    assert quantized_gpbias_block.launches == before + 4  # a warm-up call and 3 traced
+    assert all(times[name] > 0 for name, _ in qparts.FULL_KERNELS)
+    assert times["total"] == pytest.approx(sum(times[name] for name, _ in qparts.FULL_KERNELS))
+
+
+def test_graph_ms_counts_replayed_launches(dev):
+    a, bt = mm_inputs(torch.int8, 128, 128, 128, dev)
+    before = tiled_mm.launches["int8"]
+    graph_ms(lambda: tiled_mm(a, bt), iters=5, counters=(tiled_mm.launches,))
+    assert tiled_mm.launches["int8"] == before + 1 + 2 * 5  # a warm-up call, 2 replays of 5
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_dot_chain_matches_plain(dev, dtype):
+    x, w = qparts.dot_inputs(dtype, qparts.DOT_M, dev)  # 3872 rows: a partial last CTA
+    key = "int8" if dtype == torch.int8 else "bf16"
+    before = qparts.dot_chain.launches[key]
+    got = qparts.dot_chain(x, w, 3)
+    torch.cuda.synchronize()
+    assert qparts.dot_chain.launches[key] == before + 1
+    ref = qparts.dot_chain_reference(x, w, 3)
+    if dtype == torch.int8:
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(4096, 1152, 256), (100, 128, 200)])
+def test_tiled_mm_matches_plain(dev, dtype, m, k, n):
+    a, bt = mm_inputs(dtype, m, k, n, dev)
+    key = "int8" if dtype == torch.int8 else "bf16"
+    before = tiled_mm.launches[key]
+    got = tiled_mm(a, bt)
+    torch.cuda.synchronize()
+    assert tiled_mm.launches[key] == before + 1
+    ref = tiled_mm_reference(a, bt)
+    if dtype == torch.int8:
+        assert torch.equal(got, ref)
+    else:
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
