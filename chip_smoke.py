@@ -8,6 +8,9 @@ probe entry points whose kernels replace the TPU scripts' Pallas kernels
 (scripts/debug_fused_block.py, profile_pallas_conv.py,
 profile_conv_alternatives.py, profile_qblock_parts.py): each kernel against
 its plain version at a small size, then the scripts at their own sizes.
+The 3x3 conv is checked on both of its kernels (mma.sync for the input
+conv, wgmma fed by TMA for Cin % 64 == 0), with the per-kernel launch
+counter showing which one ran.
 
     python3 chip_smoke.py
 
@@ -104,7 +107,7 @@ def probe_phase(dev) -> tuple[dict, dict]:
     and library times; single-launch times where the scripts time chains;
     then every counter set to 0 and the four probe entry points driven at
     their own sizes. Returns the kernels' JSON entries and their launches."""
-    from keisei_tpu_torch.ops.conv3x3 import (BOARDS_PER_CTA, conv3x3_bpc,
+    from keisei_tpu_torch.ops.conv3x3 import (BOARDS_PER_CTA, conv3x3_bpc, conv3x3_hwbc,
                                               conv3x3_hwbc_reference)
     from keisei_tpu_torch.ops.fused_block import STAGES, fused_block_stage
     from keisei_tpu_torch.ops.qblock import (quantized_gpbias_block,
@@ -113,7 +116,7 @@ def probe_phase(dev) -> tuple[dict, dict]:
     from keisei_tpu_torch.scripts import profile_conv_alternatives as alt
     from keisei_tpu_torch.scripts import profile_direct_conv as direct
     from keisei_tpu_torch.scripts import profile_qblock_parts as qparts
-    from keisei_tpu_torch.utils.timing import cuda_ms
+    from keisei_tpu_torch.utils.timing import cuda_ms, graph_ms
 
     kernels = {}
     # -- gates: each kernel against its plain version, small sizes ---------
@@ -125,7 +128,7 @@ def probe_phase(dev) -> tuple[dict, dict]:
     part_errs = qparts.check(dev)
     alt_errs = alt.check(dev)
     print(f"phase7 check conv3x3_bpc B={direct.CHECK_B} C={direct.C} rel_err={conv_errs} "
-          f"(< 0.02)")
+          f"(< 0.02); one-hot boards equal")
     print(f"phase7 check qblock_part/dot_chain {part_errs}")
     print(f"phase7 check tiled_mm/winograd {alt_errs}")
 
@@ -139,14 +142,14 @@ def probe_phase(dev) -> tuple[dict, dict]:
     conv_plain_ms = cuda_ms(lambda: conv3x3_hwbc_reference(x, w), iters=3, warmup=1)
     x_cl = x.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
     w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    conv_library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_cl, padding=1))
+    conv_library_ms = graph_ms(lambda: F.conv2d(x_cl, w_cl, padding=1))
     for bpc in BOARDS_PER_CTA:
         got = conv3x3_bpc(x, w, boards_per_cta=bpc)
         rel = direct.compare_conv(bpc, got, ref)
         abs_err = max_errors(got, ref)[0]
         print(f"phase7 check conv3x3_bpc[{bpc}] B={b} C={c} max_abs_err={abs_err:.4g} "
               f"rel_err={rel:.4g} (< 0.02)")
-        ms = cuda_ms(lambda: conv3x3_bpc(x, w, boards_per_cta=bpc))
+        ms = graph_ms(lambda: conv3x3_bpc(x, w, boards_per_cta=bpc))
         kernels[f"conv3x3_bpc[{bpc}]"] = dict(
             max_abs_err=abs_err, ms=ms, plain_ms=conv_plain_ms, library_ms=conv_library_ms,
             **bound({"bf16": 2.0 * 81 * b * 9 * c * c}, 2.0 * (2 * 81 * b * c + 9 * c * c)))
@@ -198,7 +201,7 @@ def probe_phase(dev) -> tuple[dict, dict]:
     # -- the probes' entry points at their own sizes, counters from 0 -------
     counters = (fused_block_stage.launches, conv3x3_bpc.launches, qparts.qblock_part.launches,
                 qparts.dot_chain.launches, alt.tiled_mm.launches)
-    for counter in counters:
+    for counter in (*counters, conv3x3_hwbc.route_launches):
         counter.clear()
     quantized_gpbias_block.launches = 0  # qblock_part[full]: block calls, 3 kernels each
     t0 = time.monotonic()
@@ -209,6 +212,7 @@ def probe_phase(dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     launches = {**{f"fused_block_stage[{k}]": fused_block_stage.launches[k] for k in STAGES},
                 **{f"conv3x3_bpc[{k}]": conv3x3_bpc.launches[k] for k in BOARDS_PER_CTA},
+                "conv3x3_hwbc[256]": conv3x3_hwbc.route_launches["wgmma"],
                 "qblock_part[full]": quantized_gpbias_block.launches,
                 **{f"qblock_part[{k}]": qparts.qblock_part.launches[k] for k in qparts.VARIANTS},
                 **{f"dot_chain[{k}]": qparts.dot_chain.launches[k] for k in ("int8", "bf16")},
@@ -238,8 +242,10 @@ def probe_phase(dev) -> tuple[dict, dict]:
     flop = chains["flop"]
     print(f"phase7 direct conv chain x{direct.BLOCKS} B={direct.B} C={direct.C}: cudnn "
           f"{chains['cudnn']:.3f} ms ({flop / chains['cudnn'] / 1e9:.1f} TFLOP/s); "
-          + "; ".join(f"bpc={k} {chains[k]:.3f} ms ({flop / chains[k] / 1e9:.1f} TFLOP/s, "
-                      f"cudnn/this {chains['cudnn'] / chains[k]:.3f})" for k in BOARDS_PER_CTA))
+          + "; ".join(f"{'bpc=' if k != 'hwbc' else 'conv3x3_'}{k} {chains[k]:.3f} ms "
+                      f"({flop / chains[k] / 1e9:.1f} TFLOP/s, "
+                      f"cudnn/this {chains['cudnn'] / chains[k]:.3f})"
+                      for k in (*BOARDS_PER_CTA, "hwbc")))
     for bpc in BOARDS_PER_CTA:
         ms = kernels[f"conv3x3_bpc[{bpc}]"]["ms"]
         print(f"phase7 conv3x3_bpc[{bpc}] B={b} C={c} ms={ms:.4f} plain_ms={conv_plain_ms:.4f} "
@@ -297,18 +303,20 @@ def main() -> int:
     from keisei_tpu_torch.models.fused_infer import make_fused_forward, make_quantized_forward
     from keisei_tpu_torch.models.registry import build_model
     from keisei_tpu_torch.ops import _build
-    from keisei_tpu_torch.ops.conv3x3 import conv3x3_hwbc, conv3x3_hwbc_reference
+    from keisei_tpu_torch.ops.conv3x3 import (WGMMA_BOARDS, conv3x3_hwbc, conv3x3_hwbc_reference,
+                                              conv_route)
     from keisei_tpu_torch.ops.fused_block import (fused_gpbias_block,
                                                   fused_gpbias_block_reference)
     from keisei_tpu_torch.ops.qblock import (pack_quantized, quantize_conv_weights,
                                              quantized_gpbias_block,
                                              quantized_gpbias_block_reference)
+    from keisei_tpu_torch.scripts import profile_direct_conv as direct
     from keisei_tpu_torch.scripts import profile_int8_mma as probe
     from keisei_tpu_torch.training.checkpoint import load_checkpoint
     from keisei_tpu_torch.training.config import load_config
     from keisei_tpu_torch.training.loop import SelfPlayTrainer
     from keisei_tpu_torch.training.ppo import make_optimizer
-    from keisei_tpu_torch.utils.timing import card, cuda_ms
+    from keisei_tpu_torch.utils.timing import card, cuda_ms, graph_ms
 
     card_line = card()
     print(card_line)
@@ -327,32 +335,46 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     kernels = {}
     gpc, sec = 128, 16  # b40c256: global_pool_channels 128, se_reduction 16
+
+    def check_conv(b: int, cin: int, gen: torch.Generator) -> None:
+        """conv3x3_hwbc at (b, cin -> 256) against its plain version, on the
+        kernel its route names; its time, the plain version's and cuDNN's."""
+        x = torch.randn(9, 9, b, cin, generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn(3, 3, cin, 256, generator=gen, device=dev)
+             / math.sqrt(9 * cin)).to(torch.bfloat16)
+        conv3x3_hwbc.route_launches.clear()
+        got = conv3x3_hwbc(x, w)
+        ref = conv3x3_hwbc_reference(x, w)
+        torch.cuda.synchronize()
+        route = conv_route(b, cin, 256)
+        if dict(conv3x3_hwbc.route_launches) != {"wgmma" if cin == 256 else "mma_sync": 1}:
+            raise AssertionError(f"conv3x3 Cin={cin} took the wrong kernel: "
+                                 f"{dict(conv3x3_hwbc.route_launches)}")
+        abs_err, rel_err = max_errors(got, ref)
+        ok = torch.allclose(got.float(), ref.float(), rtol=TOL, atol=TOL)
+        # replayed from a CUDA graph: these kernels run for less time than
+        # Python takes to launch them
+        ms = graph_ms(lambda: conv3x3_hwbc(x, w))
+        plain_ms = cuda_ms(lambda: conv3x3_hwbc_reference(x, w), iters=5)
+        # the library yardstick: cuDNN's bf16 conv, channels_last, same shapes
+        x_cl = x.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
+        w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        library_ms = graph_ms(lambda: F.conv2d(x_cl, w_cl, padding=1))
+        work = bound({"bf16": 2.0 * 81 * b * 9 * cin * 256},
+                     2.0 * (81 * b * cin + 9 * cin * 256 + 81 * b * 256))
+        print(f"phase3 conv3x3 B={b} Cin={cin} Cout=256 kernel={route.kernel} "
+              f"tile={route.boards}x{route.cout_tile} max_abs_err={abs_err:.4g} "
+              f"max_rel_err={rel_err:.4g} tol={TOL} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={work['bound_ms']:.4f}")
+        if not ok:
+            raise AssertionError(f"conv3x3 B={b} Cin={cin} disagrees with its plain version")
+        if b == SMOKE_GAMES:  # Cin 50: the input conv of the main path; 256: a trunk conv
+            kernels["conv3x3_hwbc" if cin == 50 else "conv3x3_hwbc[256]"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **work)
+
     for b in (64, 256):
         for cin in (50, 256):
-            x = torch.randn(9, 9, b, cin, generator=g, device=dev).to(torch.bfloat16)
-            w = (torch.randn(3, 3, cin, 256, generator=g, device=dev)
-                 / math.sqrt(9 * cin)).to(torch.bfloat16)
-            got = conv3x3_hwbc(x, w)
-            ref = conv3x3_hwbc_reference(x, w)
-            torch.cuda.synchronize()
-            abs_err, rel_err = max_errors(got, ref)
-            ok = torch.allclose(got.float(), ref.float(), rtol=TOL, atol=TOL)
-            ms = cuda_ms(lambda: conv3x3_hwbc(x, w))
-            plain_ms = cuda_ms(lambda: conv3x3_hwbc_reference(x, w))
-            # the library yardstick: cuDNN's bf16 conv, channels_last, same shapes
-            x_cl = x.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
-            w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_cl, padding=1))
-            print(f"phase3 conv3x3 B={b} Cin={cin} Cout=256 max_abs_err={abs_err:.4g} "
-                  f"max_rel_err={rel_err:.4g} tol={TOL} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={library_ms:.4f}")
-            if not ok:
-                raise AssertionError(f"conv3x3 B={b} Cin={cin} disagrees with its plain version")
-            if b == SMOKE_GAMES and cin == 50:  # the input conv of the main path
-                kernels["conv3x3_hwbc"] = dict(
-                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                    **bound({"bf16": 2.0 * 81 * b * 9 * cin * 256},
-                            2.0 * (81 * b * cin + 9 * cin * 256 + 81 * b * 256)))
+            check_conv(b, cin, g)
         # 40 distinct weight sets, as in one b40c256 trunk: weights stream from HBM
         blocks = [block_weights(256, gpc, sec, g, dev) for _ in range(40)]
         x = torch.relu(torch.randn(9, 9, b, 256, generator=g, device=dev)).to(torch.bfloat16)
@@ -423,6 +445,36 @@ def main() -> int:
                         2.0 * 81 * b * 256 + 2 * 9.0 * 256 * 256 + fc_bytes(256, gpc, sec)
                         + 4.0 * 2 * (b // 32)))
         del qblocks
+
+    # the trunk conv at the probes' batch, then the wgmma conv's tails and
+    # every K depth, and one-hot boards whose every tap holds its own integers
+    # (equal: a transposed tap or a wrong zero-filled edge would show as a
+    # wrong square); a generator of their own keeps the streams above as they were
+    g2 = torch.Generator(device=dev).manual_seed(4)
+    for cin in (50, 256):
+        check_conv(1024, cin, g2)
+    shapes = [(b, cin, cout) for b in (1, 65) for cin in (64, 128) for cout in (128, 256)]
+    for b, cin, cout in shapes + [(1, 256, 256), (65, 256, 256)]:
+        x = torch.randn(9, 9, b, cin, generator=g2, device=dev).to(torch.bfloat16)
+        w = (torch.randn(3, 3, cin, cout, generator=g2, device=dev)
+             / math.sqrt(9 * cin)).to(torch.bfloat16)
+        conv3x3_hwbc.route_launches.clear()
+        got, ref = conv3x3_hwbc(x, w), conv3x3_hwbc_reference(x, w)
+        torch.cuda.synchronize()
+        abs_err = max_errors(got, ref)[0]
+        if (conv3x3_hwbc.route_launches["wgmma"] != 1
+                or not torch.allclose(got.float(), ref.float(), rtol=TOL, atol=TOL)):
+            raise AssertionError(f"wgmma conv3x3 B={b} Cin={cin} Cout={cout} disagrees with its "
+                                 f"plain version (max abs err {abs_err})")
+        print(f"phase3 conv3x3 wgmma B={b} Cin={cin} Cout={cout} max_abs_err={abs_err:.4g}")
+    for name, square in direct.ONE_HOT_SQUARES.items():
+        for cin, cout in ((64, 128), (256, 256)):
+            xh, wh = direct.one_hot_inputs(square, cin=cin, cout=cout)
+            got = conv3x3_hwbc(xh.to(dev), wh.to(dev)).float().cpu()
+            if not torch.equal(got, direct.one_hot_expected(square, wh, 5, 2, cin - 1)):
+                raise AssertionError(f"wgmma conv3x3 lays the taps of a one-hot board at the "
+                                     f"{name} wrongly (Cin={cin})")
+    print(f"phase3 conv3x3 wgmma one-hot boards {list(direct.ONE_HOT_SQUARES)} equal")
 
     # the tensor-core rate probe against its plain version (exact)
     probe.check(dev)
@@ -624,11 +676,14 @@ def main() -> int:
         "mma_chain": ("keisei_tpu_torch/csrc/mma_rate.cu", "scripts/profile_int8_mxu.py:71"),
     }
     csrc = "keisei_tpu_torch/csrc/"
+    sources["conv3x3_hwbc[256]"] = (csrc + "conv3x3_wgmma.cu", "keisei_tpu/ops/conv3x3.py:69")
+    wgmma_heights = [f"conv3x3_bpc[{boards}]" for boards in WGMMA_BOARDS]
     for name in probe_kernels:
         family = name.split("[")[0]
         sources[name] = {
             "fused_block_stage": (csrc + "fused_block.cu", "scripts/debug_fused_block.py:108"),
-            "conv3x3_bpc": (csrc + "conv3x3.cu", "scripts/profile_pallas_conv.py:83"),
+            "conv3x3_bpc": (csrc + ("conv3x3_wgmma.cu" if name in wgmma_heights
+                                    else "conv3x3.cu"), "scripts/profile_pallas_conv.py:83"),
             "tiled_mm": (csrc + "tiled_mm.cu", "scripts/profile_conv_alternatives.py:188"),
             "qblock_part": (csrc + ("qblock.cu" if name == "qblock_part[full]"
                                     else "qblock_parts.cu"), "scripts/profile_qblock_parts.py:140"),

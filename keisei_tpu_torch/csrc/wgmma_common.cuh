@@ -1,0 +1,364 @@
+// Hopper's mainloop pieces shared by conv3x3_wgmma.cu and tiled_mm.cu: TMA
+// loads into a ring of 128-byte-swizzled shared-memory stages guarded by
+// mbarriers (full / empty), and warpgroup MMAs (wgmma) that read both
+// operands from that ring through shared-memory descriptors. sm_90a only.
+//
+// The shape both kernels build from these pieces: the last warpgroup of a
+// CTA is the producer (one thread of it waits for a stage to be empty,
+// announces the stage's bytes to its full barrier and starts the TMA loads,
+// which complete on that barrier); every other warpgroup is a consumer
+// (waits for a stage to be full, starts the stage's wgmmas as one group,
+// and, once the group before has retired, hands that earlier stage back
+// through its empty barrier). No block-wide barrier in the loop: loads run
+// as far ahead as the ring is deep.
+//
+// Shared-memory tiles, as TMA's SWIZZLE_128B writes them and as the
+// descriptors read them (layout type B128): rows of 128 bytes, the 16-byte
+// chunk c of row r stored at chunk c ^ (r & 7); stages start at multiples
+// of 1,024 bytes.
+//   K-major operand (K contiguous: the activations, both GEMM operands): a
+//     row is one M (or N) index and 128 bytes of K; 8-row groups are 1,024
+//     bytes apart (the descriptor's stride offset); a K step of 32 bytes
+//     inside the row advances the start address by 32.
+//   MN-major operand (N contiguous: the HWIO conv weights, bf16 only, read
+//     with the instruction's transpose bit): a row is one K index and 64 N
+//     values; 8 K rows are 1,024 bytes apart (stride offset), 64-wide N
+//     atoms are one TMA box (64 K rows, 8,192 bytes) apart (leading offset);
+//     a K step of 16 rows advances the start address by 2,048.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder itself is looked up at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace keisei {
+namespace wg {
+
+constexpr int kRowBytes = 128;    // one swizzled row: 64 bf16 or 128 s8
+constexpr int kAtomBytes = 1024;  // 8 rows: the swizzle's period and every stage's alignment
+
+// ---- host: tensor maps ------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which a process that runs CUDA has
+// loaded already (the kernels link against the runtime only).
+static inline EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    if (lib == nullptr) lib = dlopen("libcuda.so", RTLD_NOW | RTLD_GLOBAL);
+    if (lib == nullptr) return nullptr;
+    return reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// A tiled map over `rank` dimensions, innermost first, with 128-byte
+// swizzle; a box that reaches outside the tensor is filled with zeros.
+// `strides` are those of dimensions 1 .. rank-1, in bytes (multiples of 16).
+// Returns a cudaError_t.
+static inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                                  const void* base, const cuuint64_t* dims,
+                                  const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides,
+                            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+}
+
+static inline int sm_count() {
+  static int n = []() {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return sms;
+  }();
+  return n;
+}
+
+// ---- device: mbarriers ------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(arrivals) : "memory");
+}
+// Makes the initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// One arrival that also announces `bytes` of TMA traffic for this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// Waits until the barrier's phase of this parity has completed. A wait
+// that never ends (a lost arrival) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (spins > (1u << 26)) __trap();
+  }
+}
+
+// ---- device: TMA loads (one thread starts them; completion lands on `bar`) ----
+
+// Starts the fetch of a map (a kernel parameter) ahead of its first load.
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1) : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3) : "memory");
+}
+
+// ---- device: wgmma ----------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled tile starting at shared address `addr`
+// (leading and stride offsets in bytes; see the layouts at the top).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t leading, uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(leading >> 4) << 16) |
+         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
+}
+
+// Before the first wgmma of a batch: orders the warpgroup's earlier
+// register and shared-memory accesses before the MMAs.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keeps the compiler from reading or moving accumulators across a point
+// where in-flight MMAs may still write them.
+template <typename T, int N>
+__device__ __forceinline__ void acc_fence(T (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (std::is_floating_point<T>::value) {
+      asm volatile("" : "+f"(d[i]) :: "memory");
+    } else {
+      asm volatile("" : "+r"(d[i]) :: "memory");
+    }
+  }
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16 bf16, K-major) x B (16 x 128 bf16); TB = 1 reads B
+// MN-major (N contiguous) through the descriptor's transpose bit.
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, %67;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x 256, f32) (+)= A (64 x 16 bf16, K-major) x B (16 x 256 bf16); TB = 1 reads B
+// MN-major (N contiguous) through the descriptor's transpose bit.
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, %131;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x 128, s32) (+)= A (64 x 32 s8, K-major) x B (32 x 128 s8, K-major): the
+// integer form has no transpose bits.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// ---- device: the accumulator fragment on its way out ---------------------------
+//
+// A warp of the warpgroup holds 16 rows of the 64 x N tile: lane l has, for
+// every 8-column block j, d[4j], d[4j+1] at row l/4 and d[4j+2], d[4j+3] at
+// row l/4 + 8, columns 8j + 2(l%4) and the next. The two helpers below trade
+// registers inside a quad (4 lanes of one row) so that a lane ends up with
+// 16 contiguous bytes to store.
+
+// v[i] of lane q (= l % 4) <- v[q] of lane i: a 4 x 4 transpose of 32-bit
+// values over a quad. All 32 lanes must call it.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
+#pragma unroll
+  for (int bit = 1; bit <= 2; bit <<= 1) {
+    const bool up = q & bit;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i & bit) continue;
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, up ? v[i] : v[i | bit], bit);
+      if (up) v[i] = got; else v[i | bit] = got;
+    }
+  }
+}
+
+// Lanes q and q ^ 1 hold columns 2q, 2q+1 of two 8-column blocks (lo, hi).
+// Afterwards an even q holds columns 2q .. 2q+3 of the low block in (lo,
+// hi), an odd q columns 2(q-1) .. 2(q-1)+3 of the high block. All 32 lanes
+// must call it.
+template <typename T>
+__device__ __forceinline__ void quad_pair(T (&lo)[2], T (&hi)[2], int q) {
+  const bool odd = q & 1;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const T got = __shfl_xor_sync(0xffffffffu, odd ? lo[e] : hi[e], 1);
+    if (odd) lo[e] = got; else hi[e] = got;
+  }
+}
+
+}  // namespace wg
+}  // namespace keisei

@@ -27,6 +27,7 @@ import torch
 from . import tables as T
 from . import types as TY
 from . import zobrist as Z
+from ..utils.device import resolve_device
 
 
 def _lanes_to_i64(lanes: np.ndarray) -> np.ndarray:
@@ -57,10 +58,11 @@ def _ray_dest_onehot() -> np.ndarray:
 
 
 class EngineTables:
-    """Device copies of the rule geometry, built once per device."""
+    """Device copies of the rule geometry, built once per device (the card
+    unless the caller names "cpu"; "cuda" without a card raises)."""
 
-    def __init__(self, device: torch.device | str = "cpu"):
-        dev = torch.device(device)
+    def __init__(self, device: torch.device | str = "cuda"):
+        dev = resolve_device(device)
         self.device = dev
 
         def t(a, dtype=None):

@@ -11,21 +11,23 @@ import torch
 
 from ..engine import core as C
 from ..engine import types as TY
+from ..utils.device import resolve_device
 
 
 class EnvCore:
-    """N envs on one device. The engine tables and the fresh-game state and
+    """N envs on one device (the card unless the caller names "cpu"; "cuda"
+    without a card raises). The engine tables and the fresh-game state and
     outputs are built once, at construction."""
 
     def __init__(self, num_envs: int, max_ply: int = 500, num_channels: int = 50,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if num_channels not in (46, 50):
             raise ValueError(f"num_channels must be 46 or 50, got {num_channels}")
         self.num_envs = num_envs
         self.max_ply = max_ply
         self.num_channels = num_channels
         self.action_space = TY.ACTION_SPACE
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.tables = C.EngineTables(self.device)
         self.reset_state = C.init_state(1, max_ply, self.tables)
         self.reset_obs, self.reset_mask, _ = C.initial_outputs(

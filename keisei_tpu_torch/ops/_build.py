@@ -6,7 +6,9 @@ one shared library with a plain C interface, loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
          -Xptxas -v -c csrc/<name>.cu -o <build>/<name>.o        (each source)
-    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <build>/libkeisei_kernels.so *.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <build>/libkeisei_kernels.so *.o -ldl
+
+(-ldl: the wgmma kernels look libcuda's tensor-map encoder up with dlsym.)
 
 The library goes to `build/kernels-<hash>/` at the checkout's root (listed
 in .gitignore), keyed by a hash of the sources and flags, so an edited
@@ -29,6 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-ldl"]
 LIB_NAME = "libkeisei_kernels.so"
 
 _P = ctypes.c_void_p
@@ -36,6 +39,7 @@ _I = ctypes.c_int
 # C entry point -> argument types; every one returns a cudaError_t as int
 SIGNATURES = {
     "keisei_conv3x3_bpc": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "keisei_conv3x3_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "keisei_fused_gpbias_block": [_P] * 13 + [_I, _I, _I, _I, _P],
     "keisei_fused_block_stage": [_P] * 9 + [_I] * 4 + [_P],
     "keisei_quantized_gpbias_block": [_P] * 17 + [_I] * 5 + [_P],
@@ -59,7 +63,7 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -100,7 +104,7 @@ def load_library() -> ctypes.CDLL:
         tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
         if all(rc == 0 for _, rc, _ in runs):
             runs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-                               *[str(o) for o in objs]]], out_dir)
+                               *[str(o) for o in objs], *LINK_FLAGS]], out_dir)
         log = "".join(f"$ {' '.join(cmd)}\n# rc {rc}\n{out}" for cmd, rc, out in runs)
         log += f"# {time.monotonic() - t0:.1f} s in all\n"
         (out_dir / "build.log").write_text(log)

@@ -6,8 +6,9 @@ make_pallas_mm it replaces):
      place of the TPU script's XLA conv, as an 80-conv chain at B=1024;
   b) Winograd F(2x2, 3x3) as plain torch ops (XLA ops in the TPU script, not
      a kernel): 25 tiles x 16 products per board against 81 x 9 taps;
-  c) `tiled_mm(a, bt)`, a GEMM tiled over M and N (csrc/tiled_mm.cu), s8 ->
-     s32 or bf16 -> f32, at the im2col conv shape (4096, 1152) @ (1152, 256),
+  c) `tiled_mm(a, bt)`, a GEMM tiled over M and N (csrc/tiled_mm.cu: wgmma
+     fed by TMA through a ring of mbarrier-guarded stages), s8 -> s32 or
+     bf16 -> f32, at the im2col conv shape (4096, 1152) @ (1152, 256),
      beside cuBLAS: torch._int_mm in int8 and torch.matmul in bf16 (which
      rounds its output to bf16, where tiled_mm writes f32).
 

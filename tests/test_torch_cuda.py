@@ -14,6 +14,12 @@ value across a rounding boundary: at most 1 level apart, >= 99% identical,
 scales within rtol 1e-4 (the same bound as the CPU test against JAX). The
 tensor-core probe computes in exact integers and must match bit for bit.
 
+The wgmma conv (Cin % 64 == 0) is held to the same bound over tails in B
+and every K depth, to max |err| / max |ref| < 0.02 as the probe script holds
+it, and on one-hot boards (tests/test_torch_wgmma.py's inputs) to equality;
+its tensor maps are kernel arguments, so it must also be right when replayed
+from a CUDA graph on new input values.
+
 The probes' kernels: the boards-per-CTA conv at the bf16 bound above; the
 fused block's stage kernels within 1e-4 of max |ref| for the f32 stages
 before any bf16 rounding (conv1, bnrelu, pool) and at rtol = atol = 0.05
@@ -29,12 +35,15 @@ import pytest
 import torch
 
 from keisei_tpu_torch.ops import _build
-from keisei_tpu_torch.ops.conv3x3 import conv3x3_bpc, conv3x3_hwbc, conv3x3_hwbc_reference
+from keisei_tpu_torch.ops import conv3x3 as conv_ops
+from keisei_tpu_torch.ops.conv3x3 import (WGMMA_BOARDS, ConvRoute, conv3x3_bpc, conv3x3_hwbc,
+                                          conv3x3_hwbc_reference, conv_route)
 from keisei_tpu_torch.ops.fused_block import (STAGES, fused_block_stage,
                                               fused_block_stage_reference, fused_gpbias_block,
                                               fused_gpbias_block_reference)
 from keisei_tpu_torch.ops.qblock import (pack_quantized, quantize_conv_weights,
                                          quantized_gpbias_block, quantized_gpbias_block_reference)
+from keisei_tpu_torch.scripts import profile_direct_conv as direct
 from keisei_tpu_torch.scripts import profile_qblock_parts as qparts
 from keisei_tpu_torch.scripts.debug_fused_block import EXACT_STAGES, stage_inputs
 from keisei_tpu_torch.scripts.profile_conv_alternatives import (mm_inputs, tiled_mm,
@@ -85,6 +94,95 @@ def test_conv3x3_matches_plain(dev, b, cin, cout):
     assert conv3x3_hwbc.launches == before + 1
     ref = conv3x3_hwbc_reference(x, w)
     torch.testing.assert_close(got.float(), ref.float(), rtol=TOL, atol=TOL)
+
+
+def conv_inputs(b, cin, cout, dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(9, 9, b, cin, generator=g).to(torch.bfloat16).to(dev)
+    w = (torch.randn(3, 3, cin, cout, generator=g) / (9 * cin) ** 0.5).to(torch.bfloat16).to(dev)
+    return x, w
+
+
+@pytest.mark.parametrize("cout", [128, 256])
+@pytest.mark.parametrize("cin", [64, 128, 256])
+@pytest.mark.parametrize("b", [1, 7, 64, 65, 200, 256])
+def test_conv3x3_wgmma_route_matches_plain(dev, b, cin, cout):
+    x, w = conv_inputs(b, cin, cout, dev, seed=b + cin + cout)
+    assert conv_route(b, cin, cout).kernel == "wgmma"
+    before = conv3x3_hwbc.route_launches["wgmma"], conv3x3_hwbc.route_launches["mma_sync"]
+    got = conv3x3_hwbc(x, w)
+    torch.cuda.synchronize()
+    assert (conv3x3_hwbc.route_launches["wgmma"],
+            conv3x3_hwbc.route_launches["mma_sync"]) == (before[0] + 1, before[1])
+    ref = conv3x3_hwbc_reference(x, w)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=TOL, atol=TOL)
+    assert direct.compare_conv(0, got, ref) < 0.02
+
+
+def test_conv3x3_input_conv_stays_on_mma_sync(dev):
+    x, w = conv_inputs(64, 50, 256, dev, seed=5)
+    before = conv3x3_hwbc.route_launches["wgmma"], conv3x3_hwbc.route_launches["mma_sync"]
+    conv3x3_hwbc(x, w)
+    torch.cuda.synchronize()
+    assert (conv3x3_hwbc.route_launches["wgmma"],
+            conv3x3_hwbc.route_launches["mma_sync"]) == (before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 128), (256, 256)])
+@pytest.mark.parametrize("name", list(direct.ONE_HOT_SQUARES))
+def test_conv3x3_wgmma_one_hot_taps(dev, name, cin, cout):
+    """A transposed tap or a wrong zero-filled edge shows as a wrong square."""
+    square = direct.ONE_HOT_SQUARES[name]
+    for channel in (0, cin - 1):
+        x, w = direct.one_hot_inputs(square, cin=cin, cout=cout, channel=channel)
+        want = direct.one_hot_expected(square, w, 5, 2, channel)
+        assert torch.equal(conv3x3_hwbc(x.to(dev), w.to(dev)).float().cpu(), want)
+        for boards in WGMMA_BOARDS:
+            got = conv3x3_bpc(x.to(dev), w.to(dev), boards_per_cta=boards)
+            assert torch.equal(got.float().cpu(), want)
+
+
+@pytest.mark.parametrize("boards,cout_tile", direct.WGMMA_TILES)
+@pytest.mark.parametrize("persistent", [False, True])
+def test_conv3x3_wgmma_every_tile_matches_plain(dev, boards, cout_tile, persistent):
+    for b in (5, 130):
+        x, w = conv_inputs(b, 128, 256, dev, seed=b + boards)
+        got = conv_ops._conv_wgmma(x, w, ConvRoute("wgmma", boards, cout_tile, persistent))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), conv3x3_hwbc_reference(x, w).float(), rtol=TOL,
+                                   atol=TOL)
+
+
+def test_conv3x3_wgmma_replays_from_a_graph(dev):
+    """The tensor maps are kernel arguments: a captured launch, replayed
+    after the input's values changed in place, computes the new conv."""
+    x, w = conv_inputs(65, 256, 256, dev, seed=11)
+    conv3x3_hwbc(x, w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out = conv3x3_hwbc(x, w)
+    x.copy_(conv_inputs(65, 256, 256, dev, seed=12)[0])
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), conv3x3_hwbc_reference(x, w).float(), rtol=TOL,
+                               atol=TOL)
+    assert graph_ms(lambda: conv3x3_hwbc(x, w), iters=5) > 0
+
+
+def test_conv3x3_wgmma_raises_and_never_falls_back(dev):
+    """What the wgmma kernel does not take raises, in the wrapper or from
+    the C entry point; no launch is counted and nothing else runs."""
+    x, w = conv_inputs(4, 64, 384, dev, seed=1)
+    before = conv3x3_hwbc.launches, dict(conv3x3_bpc.launches)
+    with pytest.raises(ValueError, match="Cout"):
+        conv_ops._conv_wgmma(x, w, ConvRoute("wgmma", 64, 256, True))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        conv_ops._conv_wgmma(x, w, ConvRoute("wgmma", 32, 128, True))
+    x50, w50 = conv_inputs(4, 50, 256, dev, seed=2)
+    with pytest.raises(ValueError, match="Cin % 64"):
+        conv3x3_bpc(x50, w50, boards_per_cta=64)
+    assert (conv3x3_hwbc.launches, dict(conv3x3_bpc.launches)) == before
 
 
 @pytest.mark.parametrize("b,c,gpc,sec", [(64, 256, 128, 16), (5, 128, 64, 8)])
@@ -168,6 +266,18 @@ def test_conv3x3_bpc_matches_plain(dev, bpc, b, cin, cout):
                                atol=TOL)
 
 
+@pytest.mark.parametrize("bpc", WGMMA_BOARDS)
+@pytest.mark.parametrize("b,cin,cout", [(64, 256, 256), (7, 128, 128), (200, 64, 256)])
+def test_conv3x3_bpc_wgmma_matches_plain(dev, bpc, b, cin, cout):
+    x, w = conv_inputs(b, cin, cout, dev, seed=cin + bpc)
+    before = conv3x3_bpc.launches[bpc]
+    got = conv3x3_bpc(x, w, boards_per_cta=bpc)
+    torch.cuda.synchronize()
+    assert conv3x3_bpc.launches[bpc] == before + 1
+    torch.testing.assert_close(got.float(), conv3x3_hwbc_reference(x, w).float(), rtol=TOL,
+                               atol=TOL)
+
+
 @pytest.mark.parametrize("stage", STAGES)
 @pytest.mark.parametrize("b,c", [(32, 128), (5, 256)])
 def test_fused_block_stage_matches_plain(dev, stage, b, c):
@@ -226,7 +336,7 @@ def test_dot_chain_matches_plain(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(4096, 1152, 256), (100, 128, 200)])
+@pytest.mark.parametrize("m,k,n", [(4096, 1152, 256), (100, 128, 200), (100, 1152, 136)])
 def test_tiled_mm_matches_plain(dev, dtype, m, k, n):
     a, bt = mm_inputs(dtype, m, k, n, dev)
     key = "int8" if dtype == torch.int8 else "bf16"

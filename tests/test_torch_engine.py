@@ -41,7 +41,7 @@ def test_random_playout_matches_jax(num_channels, max_ply, seed):
     jenv = JaxEnvCore(n, max_ply, num_channels)
     jstep = jax.jit(jenv.step_fn())
     js, jobs, jmask = jenv.init()
-    env = EnvCore(n, max_ply, num_channels)
+    env = EnvCore(n, max_ply, num_channels, device="cpu")
     ts, tobs, tmask = env.init()
     np.testing.assert_array_equal(_np(tobs), np.asarray(jobs))
     np.testing.assert_array_equal(_np(tmask), np.asarray(jmask))
@@ -108,7 +108,7 @@ def _play(env, state, moves):
 
 def test_sennichite_fourfold_repetition_is_draw():
     """tests/test_engine_terminations.py::TestSennichite through the port."""
-    env = EnvCore(1, 64, 46)
+    env = EnvCore(1, 64, 46, device="cpu")
     state, _, _ = env.init()
     cycle = ["5i5h", "5a5b", "5h5i", "5b5a"]
     state, out = _play(env, state, cycle * 2 + cycle[:3])
@@ -119,7 +119,7 @@ def test_sennichite_fourfold_repetition_is_draw():
 
 
 def test_perpetual_check_victim_wins():
-    env = EnvCore(1, 64, 46)
+    env = EnvCore(1, 64, 46, device="cpu")
     board, hands, stm = parse_sfen("4k4/9/9/9/6R2/9/9/9/4K4 b - 1")
     state = C.state_from_position(board, hands, stm, 64, env.tables)
     cycle = ["5a4a", "5e4e", "4a5a", "4e5e"]

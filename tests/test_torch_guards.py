@@ -72,6 +72,20 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+@pytest.mark.parametrize("what", ["EnvCore", "EngineTables"])
+def test_engine_defaults_to_the_card_and_raises_without_one(monkeypatch, what):
+    """Built with no device argument the engine resolves to the card; on a
+    machine without CUDA that raises instead of running on the CPU."""
+    from keisei_tpu_torch.engine.core import EngineTables
+    from keisei_tpu_torch.env.vec_env import EnvCore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EnvCore(2, 16, 46) if what == "EnvCore" else EngineTables()
+    built = EnvCore(2, 16, 46, device="cpu") if what == "EnvCore" else EngineTables("cpu")
+    assert built.device == torch.device("cpu")
+
+
 def test_cuda_kernels_refuse_cpu_fallback_on_other_devices():
     from keisei_tpu_torch.ops.conv3x3 import conv3x3_hwbc
 

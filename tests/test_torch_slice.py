@@ -67,7 +67,7 @@ def _check_rollout_matches(N, jax_forward, port_forward):
 
     tmodel, cfg = build_model("se_resnet", TINY)
     tmodel.load_state_dict(flax_to_torch(variables["params"], variables["batch_stats"]))
-    env = EnvCore(N, MAX_PLY, 50)
+    env = EnvCore(N, MAX_PLY, 50, device="cpu")
     jactions = torch.from_numpy(np.asarray(jtraj.actions).astype(np.int64))
     roll = make_selfplay_rollout(
         env, tmodel, get_value_adapter("katago", lambda_value=1.5, lambda_score=0.1,
