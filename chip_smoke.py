@@ -3,14 +3,18 @@ against its plain PyTorch version, checks the fused bf16 and the int8
 b40c256 forwards, trains two self-play epochs of b40c256 through the normal
 entry point (SelfPlayTrainer from configs/katago-b40c256.toml) with the
 fused forward and two with the int8 forward, runs the tensor-core rate
-probe (keisei_tpu_torch/scripts/profile_int8_mma.py), and drives the four
-probe entry points whose kernels replace the TPU scripts' Pallas kernels
+probe (keisei_tpu_torch/scripts/profile_int8_mma.py), and drives the probe
+entry points whose kernels replace the TPU scripts' Pallas kernels
 (scripts/debug_fused_block.py, profile_pallas_conv.py,
-profile_conv_alternatives.py, profile_qblock_parts.py): each kernel against
-its plain version at a small size, then the scripts at their own sizes.
-The 3x3 conv is checked on both of its kernels (mma.sync for the input
-conv, wgmma fed by TMA for Cin % 64 == 0), with the per-kernel launch
-counter showing which one ran.
+profile_conv_alternatives.py, profile_qblock_parts.py; profile_fused_forward
+for the conv on unpadded planes): each kernel against its plain version at a
+small size, then the scripts at their own sizes.
+The 3x3 conv is checked on every route (wgmma fed by TMA for Cin % 64 == 0,
+the same kernel after a zero pad of the channels for the 50 observation
+planes, mma.sync with 1 / 2 / 4 boards per CTA), with the per-route launch
+counter showing which one ran; the fused block (four kernels per call) over
+a grid of batch sizes and widths, twice with equal bits and replayed from a
+CUDA graph.
 
     python3 chip_smoke.py
 
@@ -40,6 +44,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM dense peaks (NVIDIA data sheet) and HBM3 rate, per second
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
+# the fused forward's input conv: its 50 planes padded to 64 where they are cast
+PADDED_STEM = "conv3x3_hwbc[50\u219264]"
 
 
 def bound(ops: dict[str, float], nbytes: float) -> dict:
@@ -54,21 +60,6 @@ def bound(ops: dict[str, float], nbytes: float) -> dict:
 def max_errors(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     diff = (got.float() - ref.float()).abs()
     return float(diff.max()), float((diff / ref.float().abs().clamp_min(1e-3)).max())
-
-
-def block_weights(c: int, gpc: int, sec: int, g: torch.Generator, dev) -> tuple:
-    def rnd(*shape, scale, dtype=torch.bfloat16):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
-
-    s = 1.0 / math.sqrt(9 * c)
-    ones = torch.ones(c, device=dev)
-    bn = torch.stack([ones + rnd(c, scale=0.1, dtype=torch.float32), rnd(c, scale=0.1, dtype=torch.float32),
-                      ones + rnd(c, scale=0.1, dtype=torch.float32), rnd(c, scale=0.1, dtype=torch.float32)])
-    return (rnd(3, 3, c, c, scale=s), rnd(3, 3, c, c, scale=s), bn.contiguous(),
-            rnd(3 * c, gpc, scale=0.05), rnd(gpc, scale=0.1, dtype=torch.float32),
-            rnd(gpc, c, scale=0.05), rnd(c, scale=0.1, dtype=torch.float32),
-            rnd(c, sec, scale=0.05), rnd(sec, scale=0.1, dtype=torch.float32),
-            rnd(sec, 2 * c, scale=0.05), rnd(2 * c, scale=0.1, dtype=torch.float32))
 
 
 def int8_block_diff(got: tuple, ref: tuple, bt: int) -> dict:
@@ -105,8 +96,10 @@ def probe_phase(dev) -> tuple[dict, dict]:
     Each kernel against its plain version at a small size, with partial
     tiles, and again on the inputs the scripts time (hard gates); the plain
     and library times; single-launch times where the scripts time chains;
-    then every counter set to 0 and the four probe entry points driven at
-    their own sizes. Returns the kernels' JSON entries and their launches."""
+    then every counter set to 0 and the probe entry points driven at their
+    own sizes (profile_fused_forward at the smoke's batch: it runs the input
+    conv on unpadded planes, which the fused forward no longer does). Returns
+    the kernels' JSON entries and their launches."""
     from keisei_tpu_torch.ops.conv3x3 import (BOARDS_PER_CTA, conv3x3_bpc, conv3x3_hwbc,
                                               conv3x3_hwbc_reference)
     from keisei_tpu_torch.ops.fused_block import STAGES, fused_block_stage
@@ -115,6 +108,7 @@ def probe_phase(dev) -> tuple[dict, dict]:
     from keisei_tpu_torch.scripts import debug_fused_block as dbg
     from keisei_tpu_torch.scripts import profile_conv_alternatives as alt
     from keisei_tpu_torch.scripts import profile_direct_conv as direct
+    from keisei_tpu_torch.scripts import profile_fused_forward as fused
     from keisei_tpu_torch.scripts import profile_qblock_parts as qparts
     from keisei_tpu_torch.utils.timing import cuda_ms, graph_ms
 
@@ -209,10 +203,13 @@ def probe_phase(dev) -> tuple[dict, dict]:
     chains = direct.measure(dev)
     parts = qparts.measure(dev, qb, bt)
     mm = alt.measure(dev)
+    if fused.main([str(SMOKE_GAMES)]) != 0:
+        raise AssertionError("profile_fused_forward failed")
     torch.cuda.synchronize()
     launches = {**{f"fused_block_stage[{k}]": fused_block_stage.launches[k] for k in STAGES},
                 **{f"conv3x3_bpc[{k}]": conv3x3_bpc.launches[k] for k in BOARDS_PER_CTA},
                 "conv3x3_hwbc[256]": conv3x3_hwbc.route_launches["wgmma"],
+                "conv3x3_hwbc": conv3x3_hwbc.route_launches["wgmma_padded"],
                 "qblock_part[full]": quantized_gpbias_block.launches,
                 **{f"qblock_part[{k}]": qparts.qblock_part.launches[k] for k in qparts.VARIANTS},
                 **{f"dot_chain[{k}]": qparts.dot_chain.launches[k] for k in ("int8", "bf16")},
@@ -304,13 +301,14 @@ def main() -> int:
     from keisei_tpu_torch.models.registry import build_model
     from keisei_tpu_torch.ops import _build
     from keisei_tpu_torch.ops.conv3x3 import (WGMMA_BOARDS, conv3x3_hwbc, conv3x3_hwbc_reference,
-                                              conv_route)
-    from keisei_tpu_torch.ops.fused_block import (fused_gpbias_block,
+                                              conv_route, pad_channels)
+    from keisei_tpu_torch.ops.fused_block import (block_plan, fused_gpbias_block,
                                                   fused_gpbias_block_reference)
     from keisei_tpu_torch.ops.qblock import (pack_quantized, quantize_conv_weights,
                                              quantized_gpbias_block,
                                              quantized_gpbias_block_reference)
     from keisei_tpu_torch.scripts import profile_direct_conv as direct
+    from keisei_tpu_torch.scripts import profile_fused_forward as fused
     from keisei_tpu_torch.scripts import profile_int8_mma as probe
     from keisei_tpu_torch.training.checkpoint import load_checkpoint
     from keisei_tpu_torch.training.config import load_config
@@ -338,7 +336,9 @@ def main() -> int:
 
     def check_conv(b: int, cin: int, gen: torch.Generator) -> None:
         """conv3x3_hwbc at (b, cin -> 256) against its plain version, on the
-        kernel its route names; its time, the plain version's and cuDNN's."""
+        route its shapes name; its time, the plain version's and cuDNN's. For
+        the 50 planes also the forward's call on planes padded beforehand,
+        which must give the same bits, and the mma.sync kernel's time."""
         x = torch.randn(9, 9, b, cin, generator=gen, device=dev).to(torch.bfloat16)
         w = (torch.randn(3, 3, cin, 256, generator=gen, device=dev)
              / math.sqrt(9 * cin)).to(torch.bfloat16)
@@ -347,36 +347,84 @@ def main() -> int:
         ref = conv3x3_hwbc_reference(x, w)
         torch.cuda.synchronize()
         route = conv_route(b, cin, 256)
-        if dict(conv3x3_hwbc.route_launches) != {"wgmma" if cin == 256 else "mma_sync": 1}:
+        if dict(conv3x3_hwbc.route_launches) != {"wgmma" if cin % 64 == 0 else "wgmma_padded": 1}:
             raise AssertionError(f"conv3x3 Cin={cin} took the wrong kernel: "
                                  f"{dict(conv3x3_hwbc.route_launches)}")
         abs_err, rel_err = max_errors(got, ref)
         ok = torch.allclose(got.float(), ref.float(), rtol=TOL, atol=TOL)
-        # replayed from a CUDA graph: these kernels run for less time than
-        # Python takes to launch them
-        ms = graph_ms(lambda: conv3x3_hwbc(x, w))
         plain_ms = cuda_ms(lambda: conv3x3_hwbc_reference(x, w), iters=5)
-        # the library yardstick: cuDNN's bf16 conv, channels_last, same shapes
-        x_cl = x.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
-        w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        library_ms = graph_ms(lambda: F.conv2d(x_cl, w_cl, padding=1))
         work = bound({"bf16": 2.0 * 81 * b * 9 * cin * 256},
                      2.0 * (81 * b * cin + 9 * cin * 256 + 81 * b * 256))
+        name = "conv3x3_hwbc[256]"
+        if cin % 64 == 0:
+            # replayed from a CUDA graph: these kernels run for less time than
+            # Python takes to launch them
+            ms = graph_ms(lambda: conv3x3_hwbc(x, w))
+            # the library yardstick: cuDNN's bf16 conv, channels_last, same shapes
+            x_cl, w_cl = direct.cudnn_x(x), direct.cudnn_w(w)
+            library_ms = graph_ms(lambda: F.conv2d(x_cl, w_cl, padding=1))
+            extra = ""
+        else:
+            name = "conv3x3_hwbc"
+            xp, wp = pad_channels(x, 3), pad_channels(w, 2)
+            conv3x3_hwbc.route_launches.clear()
+            gotp = conv3x3_hwbc(xp, wp)
+            torch.cuda.synchronize()
+            if dict(conv3x3_hwbc.route_launches) != {"wgmma": 1} or not torch.equal(gotp, got):
+                raise AssertionError(f"conv3x3 Cin={cin}: the call on padded planes differs from "
+                                     f"the padding route ({dict(conv3x3_hwbc.route_launches)})")
+            t = fused.stem_conv_ms(x, w)
+            ms, library_ms = t["hwbc"], t["cudnn"]
+            extra = (f" padded_ms={t['padded']:.4f} mma_sync_ms={t['mma_sync']:.4f} "
+                     f"cudnn_padded_ms={t['cudnn_padded']:.4f} fill_ms={t['fill']:.4f} "
+                     f"cast_ms={t['cast']:.4f}")
+            if b == SMOKE_GAMES:
+                # the fused forward's own call, planes padded beforehand. Its work is
+                # the 50-plane conv's (`work`): the 14 zero channels are the design's
+                # cost. `ms` is the kernel alone; the forward also pays fill_ms for
+                # its padded planes where unpadded ones would take cast_ms.
+                kernels[PADDED_STEM] = dict(
+                    max_abs_err=max_errors(gotp, conv3x3_hwbc_reference(xp, wp))[0],
+                    ms=t["padded"],
+                    plain_ms=cuda_ms(lambda: conv3x3_hwbc_reference(xp, wp), iters=5),
+                    library_ms=t["cudnn_padded"], fill_ms=t["fill"], cast_ms=t["cast"], **work)
         print(f"phase3 conv3x3 B={b} Cin={cin} Cout=256 kernel={route.kernel} "
               f"tile={route.boards}x{route.cout_tile} max_abs_err={abs_err:.4g} "
               f"max_rel_err={rel_err:.4g} tol={TOL} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms:.4f} bound_ms={work['bound_ms']:.4f}")
+              f"library_ms={library_ms:.4f} bound_ms={work['bound_ms']:.4f}{extra}")
         if not ok:
             raise AssertionError(f"conv3x3 B={b} Cin={cin} disagrees with its plain version")
-        if b == SMOKE_GAMES:  # Cin 50: the input conv of the main path; 256: a trunk conv
-            kernels["conv3x3_hwbc" if cin == 50 else "conv3x3_hwbc[256]"] = dict(
-                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **work)
+        if b == SMOKE_GAMES:  # Cin 50: the observation planes; 256: a trunk conv
+            kernels[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                 library_ms=library_ms, **work)
+
+    def block_work(b: int) -> dict:
+        return bound({"bf16": 2 * 2.0 * 81 * b * 9 * 256 * 256 + fc_ops(b, 256, gpc, sec)},
+                     2 * 2.0 * 81 * b * 256 + 2 * 2.0 * 9 * 256 * 256 + fc_bytes(256, gpc, sec))
+
+    def time_block(b: int, x: torch.Tensor, blocks: list, err: tuple[float, float]) -> None:
+        """The block's time over 40 weight sets (one CUDA graph of the 40
+        calls), its four kernels' from a trace, the plain version's."""
+        ms = fused.block_ms(x, blocks)
+        parts, traced = fused.block_kernels_ms(x, blocks)
+        plain_ms = cuda_ms(lambda: fused.trunk(fused_gpbias_block_reference, x, blocks), iters=2,
+                           warmup=1) / 40
+        work = block_work(b)
+        print(f"phase3 fused_gpbias_block B={b} C=256 weight_sets=40 max_abs_err={err[0]:.4g} "
+              f"max_rel_err={err[1]:.4g} tol={TOL} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={work['bound_ms']:.4f} "
+              + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
+              + f" traced_launches={traced}")
+        if b == SMOKE_GAMES:
+            kernels["fused_gpbias_block"] = dict(max_abs_err=err[0], ms=ms, plain_ms=plain_ms,
+                                                 library_ms=None, kernels_ms=parts,
+                                                 traced_launches=traced, **work)
 
     for b in (64, 256):
         for cin in (50, 256):
             check_conv(b, cin, g)
         # 40 distinct weight sets, as in one b40c256 trunk: weights stream from HBM
-        blocks = [block_weights(256, gpc, sec, g, dev) for _ in range(40)]
+        blocks = [fused.block_weights(256, gpc, sec, g, dev) for _ in range(40)]
         x = torch.relu(torch.randn(9, 9, b, 256, generator=g, device=dev)).to(torch.bfloat16)
         got = fused_gpbias_block(x, *blocks[0])
         ref = fused_gpbias_block_reference(x, *blocks[0])
@@ -384,23 +432,9 @@ def main() -> int:
         abs_err, rel_err = max_errors(got, ref)
         ok = torch.allclose(got.float(), ref.float(), rtol=TOL, atol=TOL)
 
-        def trunk(fn):
-            y = x
-            for wts in blocks:
-                y = fn(y, *wts)
-            return y
-
-        ms = cuda_ms(lambda: trunk(fused_gpbias_block), iters=5) / 40
-        plain_ms = cuda_ms(lambda: trunk(fused_gpbias_block_reference), iters=2, warmup=1) / 40
-        print(f"phase3 fused_gpbias_block B={b} C=256 max_abs_err={abs_err:.4g} "
-              f"max_rel_err={rel_err:.4g} tol={TOL} ms={ms:.4f} plain_ms={plain_ms:.4f}")
         if not ok:
             raise AssertionError(f"fused block B={b} disagrees with its plain version")
-        if b == SMOKE_GAMES:
-            kernels["fused_gpbias_block"] = dict(
-                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound({"bf16": 2 * 2.0 * 81 * b * 9 * 256 * 256 + fc_ops(b, 256, gpc, sec)},
-                        2 * 2.0 * 81 * b * 256 + 2 * 2.0 * 9 * 256 * 256 + fc_bytes(256, gpc, sec)))
+        time_block(b, x, blocks, (abs_err, rel_err))
 
         # the int8 block over the same 40 weight sets, quantized as the
         # int8 forward's prepare does; each set is held to its plain version
@@ -445,6 +479,50 @@ def main() -> int:
                         2.0 * 81 * b * 256 + 2 * 9.0 * 256 * 256 + fc_bytes(256, gpc, sec)
                         + 4.0 * 2 * (b // 32)))
         del qblocks
+
+    # the block over partial tiles of both heights and both widths, each twice
+    # with equal bits (fixed summation order, no atomics), once replayed from a
+    # CUDA graph on new values, and timed at the largest rollout batch; a
+    # generator of its own keeps the streams above as they were
+    g3 = torch.Generator(device=dev).manual_seed(5)
+    for c in (128, 256):
+        wts = fused.block_weights(c, c // 2, c // 16, g3, dev)
+        for b in (1, 31, 64, 65, 256, 1024):
+            x = torch.relu(torch.randn(9, 9, b, c, generator=g3, device=dev)).to(torch.bfloat16)
+            got, again = fused_gpbias_block(x, *wts), fused_gpbias_block(x, *wts)
+            ref = fused_gpbias_block_reference(x, *wts)
+            torch.cuda.synchronize()
+            abs_err = max_errors(got, ref)[0]
+            plan = block_plan(b, c)
+            print(f"phase3 fused_gpbias_block B={b} C={c} tile={plan.tile.boards}x{c} "
+                  f"pool_boards={plan.pool_boards} max_abs_err={abs_err:.4g} "
+                  f"repeat_equal={torch.equal(got, again)}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"fused block B={b} C={c}: two runs differ")
+            if not torch.allclose(got.float(), ref.float(), rtol=TOL, atol=TOL):
+                raise AssertionError(f"fused block B={b} C={c} disagrees with its plain version")
+    x = torch.relu(torch.randn(9, 9, 65, 256, generator=g3, device=dev)).to(torch.bfloat16)
+    wts = fused.block_weights(256, gpc, sec, g3, dev)
+    fused_gpbias_block(x, *wts)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out = fused_gpbias_block(x, *wts)
+    x.copy_(torch.relu(torch.randn(9, 9, 65, 256, generator=g3, device=dev)))
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = fused_gpbias_block_reference(x, *wts)
+    if not torch.allclose(out.float(), ref.float(), rtol=TOL, atol=TOL):
+        raise AssertionError("fused block replayed from a CUDA graph on new values disagrees "
+                             "with its plain version")
+    print(f"phase3 fused_gpbias_block graph replay on new values B=65 C=256 "
+          f"max_abs_err={max_errors(out, ref)[0]:.4g}")
+    del graph, out
+    blocks = [fused.block_weights(256, gpc, sec, g3, dev) for _ in range(40)]
+    x = torch.relu(torch.randn(9, 9, 1024, 256, generator=g3, device=dev)).to(torch.bfloat16)
+    time_block(1024, x, blocks, max_errors(fused_gpbias_block(x, *blocks[0]),
+                                           fused_gpbias_block_reference(x, *blocks[0])))
+    del blocks, x, wts
 
     # the trunk conv at the probes' batch, then the wgmma conv's tails and
     # every K depth, and one-hot boards whose every tap holds its own integers
@@ -530,10 +608,16 @@ def main() -> int:
     qplain.block_fn = quantized_gpbias_block_reference
     for b in (64, 256):
         obs = (torch.rand(b, 50, 9, 9, generator=g, device=dev) > 0.8).float()
+        conv3x3_hwbc.route_launches.clear()
+        fused_gpbias_block.launches = 0
         with torch.no_grad():
             got = fwd(weights, obs)
             ref = model(obs)
             truth = f32_model(obs)
+        per_forward = (fused_gpbias_block.launches, dict(conv3x3_hwbc.route_launches))
+        if per_forward != (40, {"wgmma": 1}):
+            raise AssertionError("one fused forward must launch 40 blocks and 1 conv on padded "
+                                 f"planes, none on mma.sync: {per_forward}")
         p_ok = torch.allclose(got.policy_logits, ref.policy_logits, rtol=0.1, atol=0.15)
         v_ok = torch.allclose(got.value_logits, ref.value_logits, rtol=0.1, atol=0.1)
         s_ok = torch.allclose(got.score_lead, ref.score_lead, rtol=0.1, atol=0.1)
@@ -546,7 +630,8 @@ def main() -> int:
               f"{float((got.policy_logits - ref.policy_logits).abs().max()):.4g} "
               f"value_max_abs_err={float((got.value_logits - ref.value_logits).abs().max()):.4g} "
               f"score_max_abs_err={float((got.score_lead - ref.score_lead).abs().max()):.4g} "
-              f"top1_agree={agree:.3f} fused_forward_ms={fused_ms:.3f} eager_forward_ms={eager_ms:.3f}")
+              f"top1_agree={agree:.3f} fused_forward_ms={fused_ms:.3f} eager_forward_ms={eager_ms:.3f} "
+              f"block_launches={per_forward[0]} conv_route_launches={per_forward[1]}")
         if not (p_ok and v_ok and s_ok and agree >= 0.7):
             raise AssertionError(f"fused b40c256 forward disagrees with the eager model at B={b}")
 
@@ -600,10 +685,14 @@ def main() -> int:
             seen = []
             trainer = SelfPlayTrainer(smoke_cfg, device="cuda", metrics_sink=seen.append)
             conv3x3_hwbc.launches = 0
+            conv3x3_hwbc.route_launches.clear()
             fused_gpbias_block.launches = 0
             quantized_gpbias_block.launches = 0
             trainer.run(2)
             torch.cuda.synchronize()
+            if dict(conv3x3_hwbc.route_launches) != {"wgmma": conv3x3_hwbc.launches}:
+                raise AssertionError(f"the {mode} path's input conv left the wgmma kernel: "
+                                     f"{dict(conv3x3_hwbc.route_launches)}")
             counts = {"conv3x3_hwbc": conv3x3_hwbc.launches,
                       "fused_gpbias_block": fused_gpbias_block.launches,
                       "quantized_gpbias_block": quantized_gpbias_block.launches}
@@ -626,8 +715,8 @@ def main() -> int:
             if counts[block] < 40 * forwards or counts["conv3x3_hwbc"] < forwards or counts[other]:
                 raise AssertionError(f"the {mode} path did not go through its kernels: {counts}")
             if mode == "fused":
-                launches.update(conv3x3_hwbc=counts["conv3x3_hwbc"],
-                                fused_gpbias_block=counts[block])
+                launches.update({PADDED_STEM: counts["conv3x3_hwbc"],
+                                 "fused_gpbias_block": counts[block]})
             else:
                 launches["quantized_gpbias_block"] = counts[block]
             ckpts = sorted(os.listdir(tc.checkpoint_dir))
@@ -668,7 +757,8 @@ def main() -> int:
     launches.update(probe_launches)
 
     sources = {
-        "conv3x3_hwbc": ("keisei_tpu_torch/csrc/conv3x3.cu", "keisei_tpu/ops/conv3x3.py:69"),
+        PADDED_STEM: ("keisei_tpu_torch/csrc/conv3x3_wgmma.cu", "keisei_tpu/ops/conv3x3.py:69"),
+        "conv3x3_hwbc": ("keisei_tpu_torch/csrc/conv3x3_wgmma.cu", "keisei_tpu/ops/conv3x3.py:69"),
         "fused_gpbias_block": ("keisei_tpu_torch/csrc/fused_block.cu",
                                "keisei_tpu/ops/fused_block.py:124"),
         "quantized_gpbias_block": ("keisei_tpu_torch/csrc/qblock.cu",
@@ -681,7 +771,8 @@ def main() -> int:
     for name in probe_kernels:
         family = name.split("[")[0]
         sources[name] = {
-            "fused_block_stage": (csrc + "fused_block.cu", "scripts/debug_fused_block.py:108"),
+            "fused_block_stage": (csrc + "fused_block_stage.cu",
+                                  "scripts/debug_fused_block.py:108"),
             "conv3x3_bpc": (csrc + ("conv3x3_wgmma.cu" if name in wgmma_heights
                                     else "conv3x3.cu"), "scripts/profile_pallas_conv.py:83"),
             "tiled_mm": (csrc + "tiled_mm.cu", "scripts/profile_conv_alternatives.py:188"),

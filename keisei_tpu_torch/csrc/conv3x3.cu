@@ -1,17 +1,20 @@
-// SAME 3x3 convolution, bf16 in / f32 accumulate / bf16 out, for sm_90a.
+// SAME 3x3 convolution, bf16 in / f32 accumulate / bf16 out, for sm_90a, on
+// mma.sync with whole boards per CTA. Reached only through conv3x3_bpc with
+// 1, 2 or 4 boards per CTA: conv3x3_hwbc takes the wgmma kernel
+// (conv3x3_wgmma.cu) for every shape, padding Cin to a multiple of 64.
 //
-// Replaces the TPU kernel keisei_tpu/ops/conv3x3.py:conv3x3_hwbc
+// The first port of the TPU kernel keisei_tpu/ops/conv3x3.py:conv3x3_hwbc
 // (_conv_kernel): x (9, 9, B, Cin), w (3, 3, Cin, Cout) -> (9, 9, B, Cout).
 //
-// What bounds it on an H100: at the path's shapes (the input conv, Cin=50,
-// Cout=256, and the C=256 probe) it is tensor-core work, 2*81*9*Cin*Cout
-// FLOP per board against 2*81*(Cin+Cout) bytes of activations; the weights
-// (up to 1.18 MB) are re-read from L2 by every CTA. The TPU kernel keeps a
+// What bounds it on an H100: tensor-core work, 2*81*9*Cin*Cout FLOP per
+// board against 2*81*(Cin+Cout) bytes of activations; the weights (up to
+// 1.18 MB) are re-read from L2 by every CTA. The TPU kernel keeps a
 // 16-board tile and the whole weight in 100 MiB of VMEM; here one CTA owns
 // one board (81 squares, padded to 96 MMA rows), holds it in shared memory
 // with Cin zero-padded to a multiple of 64 (so Cin=50 needs no special MMA
 // path), and streams the weights through a 2-stage cp.async ring. See
-// conv_common.cuh. Simple and right first: no wgmma/TMA yet.
+// conv_common.cuh. mma.sync from shared memory reaches under half of the
+// card's bf16 rate, which is why the production route left this kernel.
 //
 // conv3x3_bpc_kernel is the same conv with BPC boards per CTA (replacing
 // the TPU probe scripts/profile_pallas_conv.py:pallas_conv, whose grid step

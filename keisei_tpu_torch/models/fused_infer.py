@@ -2,9 +2,12 @@
 keisei_tpu/models/fused_infer.py:make_fused_forward), eval mode.
 
 The trunk runs in the (9, 9, B, C) spatial-major layout: the input conv is
-`ops.conv3x3.conv3x3_hwbc`, each block one `ops.fused_block.
-fused_gpbias_block` launch. The heads (<0.3% of the FLOPs) are plain torch
-in the same layout, as they run outside any Pallas kernel in JAX.
+`ops.conv3x3.conv3x3_hwbc` on observation planes padded with zero channels
+to a multiple of 64 (the wgmma kernel's K chunk; the pad is written where
+the observation is cast to bf16, and `prepare` pads the weights once), each
+block one `ops.fused_block.fused_gpbias_block` call (four kernels on the
+card). The heads (<0.3% of the FLOPs) are plain torch in the same layout,
+as they run outside any Pallas kernel in JAX.
 
 `FusedForward.prepare(model)` folds the BatchNorm affines (s = scale /
 sqrt(var + eps), b = bias - mean * s, eps 1e-5) and lays out the bf16
@@ -27,7 +30,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.conv3x3 import conv3x3_hwbc
+from ..ops.conv3x3 import conv3x3_hwbc, pad_channels
 from ..ops.fused_block import fused_gpbias_block
 from ..ops.qblock import (int8_batch_tile, pack_quantized, quantize_conv_weights,
                           quantized_gpbias_block, unpack_dequantized)
@@ -56,11 +59,20 @@ def _block_fcs(blk) -> tuple[torch.Tensor, ...]:
     return (*_dense(blk.gp_fc1), *_dense(blk.gp_fc2), *_dense(blk.se_fc1), *_dense(blk.se_fc2))
 
 
+def padded_planes(obs: torch.Tensor, channels: int) -> torch.Tensor:
+    """obs (B, Cin, 9, 9) -> (9, 9, B, channels) bf16, contiguous: the planes
+    in the trunk's layout with zero channels from Cin up (a zero fill and one
+    strided cast copy, where unpadded planes take the cast copy alone)."""
+    x = obs.new_zeros((9, 9, obs.shape[0], channels), dtype=torch.bfloat16)
+    x[..., :obs.shape[1]] = obs.permute(2, 3, 0, 1)
+    return x
+
+
 @dataclass
 class FusedWeights:
     """Weights folded and laid out for the fused forward."""
 
-    input_w: torch.Tensor
+    input_w: torch.Tensor   # (3, 3, Cin padded to a multiple of 64, C), the pad exact zeros
     input_s: torch.Tensor
     input_b: torch.Tensor
     blocks: list[tuple[torch.Tensor, ...]]
@@ -94,7 +106,7 @@ class FusedForward:
         for name, dtype in (("value_fc1", torch.bfloat16), ("value_fc2", torch.float32),
                             ("score_fc1", torch.bfloat16), ("score_fc2", torch.float32)):
             heads[name + "_w"], heads[name + "_b"] = _dense(getattr(model, name), dtype)
-        return FusedWeights(_conv_hwio(model.input_conv), s, b, blocks, heads)
+        return FusedWeights(pad_channels(_conv_hwio(model.input_conv), 2), s, b, blocks, heads)
 
     def _trunk_input(self, w: FusedWeights, obs: torch.Tensor) -> torch.Tensor:
         """Validate obs; the input conv, folded input BN and relu ->
@@ -102,8 +114,7 @@ class FusedForward:
         cfg = self.cfg
         if obs.dim() != 4 or obs.shape[1] != cfg.obs_channels or tuple(obs.shape[2:]) != (9, 9):
             raise ValueError(f"expected obs (B, {cfg.obs_channels}, 9, 9), got {tuple(obs.shape)}")
-        x = obs.permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()     # (9, 9, B, Cin)
-        x = conv3x3_hwbc(x, w.input_w)
+        x = conv3x3_hwbc(padded_planes(obs, w.input_w.shape[2]), w.input_w)
         return torch.relu(x.float() * w.input_s + w.input_b)
 
     @torch.no_grad()

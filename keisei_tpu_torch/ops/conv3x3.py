@@ -6,22 +6,26 @@ raises; only a CPU tensor takes the plain PyTorch version,
 `conv3x3_hwbc_reference`, which does the same nine f32 tap GEMMs. Which
 kernel is a pure function of the shapes, `conv_route`:
 
-- Cin a multiple of 64 and Cout 128 or 256 (the trunk's convs): the wgmma
-  kernel fed by TMA (csrc/conv3x3_wgmma.cu), whose CTA computes 64 or 128
-  boards at one output square;
-- anything else (the main path's input conv, Cin = 50, whose 100-byte rows
-  TMA cannot address): the mma.sync kernel with one board per CTA
-  (csrc/conv3x3.cu).
+- Cout 128 or 256 and Cin a multiple of 64 (the trunk's convs, and the
+  fused forward's input conv, which keeps its planes padded to 64): the
+  wgmma kernel fed by TMA (csrc/conv3x3_wgmma.cu), whose CTA computes 64 or
+  128 boards at one output square ("wgmma");
+- Cout 128 or 256 and any other Cin (the 50 observation planes, whose
+  100-byte rows TMA cannot address): x and w are padded with zero channels to
+  the next multiple of 64, two small copies, and take the same kernel
+  ("wgmma_padded"). Zero channels add nothing to an f32 sum, so the function
+  is the same;
+- any other Cout: no kernel takes it; `conv_route` raises ValueError.
 
 `conv3x3_hwbc.launches` counts kernel launches, `conv3x3_hwbc.route_launches`
-the same launches per kernel ("wgmma" / "mma_sync").
+the same launches per route.
 
 `conv3x3_bpc` is the same conv with a chosen number of boards per CTA
 (counterpart of scripts/profile_pallas_conv.py:pallas_conv, whose grid step
-holds b_t boards): 1, 2 or 4 boards through the mma.sync kernel (every weight
-slice read from L2 serves that many boards), 64 or 128 through the wgmma
-kernel (the tile's height). `conv3x3_bpc.launches` counts launches per
-boards-per-CTA.
+holds b_t boards): 1, 2 or 4 boards through the mma.sync kernel of
+csrc/conv3x3.cu (every weight slice read from L2 serves that many boards),
+64 or 128 through the wgmma kernel (the tile's height).
+`conv3x3_bpc.launches` counts launches per boards-per-CTA.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["conv3x3_hwbc", "conv3x3_hwbc_reference", "conv3x3_bpc", "conv_route", "ConvRoute",
-           "pick_batch_tile", "BOARDS_PER_CTA", "WGMMA_BOARDS"]
+           "pick_batch_tile", "pad_channels", "padded_channels", "BOARDS_PER_CTA", "WGMMA_BOARDS"]
 
 SUPPORTED_COUT = (128, 256)
 WGMMA_BOARDS = (64, 128)                 # the wgmma kernel's tile heights
@@ -44,7 +48,8 @@ BOARDS_PER_CTA = (1, 2, 4, *WGMMA_BOARDS)
 
 class ConvRoute(NamedTuple):
     """The kernel a conv of some shape takes, and its CTA tile."""
-    kernel: str        # "wgmma" or "mma_sync"
+    # "wgmma", "wgmma_padded" (after a zero pad of Cin to 64s); conv3x3_bpc also "mma_sync"
+    kernel: str
     boards: int        # boards per CTA
     cout_tile: int     # output channels per CTA
     persistent: bool   # one CTA per SM slot walking the tiles (wgmma only)
@@ -74,10 +79,23 @@ def wgmma_tile(n: int, cout: int, boards: int | None = None) -> ConvRoute:
 
 def conv_route(n: int, cin: int, cout: int) -> ConvRoute:
     """Which kernel conv3x3_hwbc launches for x (9, 9, n, cin) and w (3, 3,
-    cin, cout) on the card: a function of the shapes alone."""
-    if cin % 64 == 0 and cout in SUPPORTED_COUT:
-        return wgmma_tile(n, cout)
-    return ConvRoute("mma_sync", 1, cout, False)
+    cin, cout) on the card: a function of the shapes alone. Raises for a
+    Cout no kernel takes."""
+    if cout not in SUPPORTED_COUT:
+        raise ValueError(f"CUDA conv3x3 takes Cout in {SUPPORTED_COUT}, got Cout={cout}")
+    tile = wgmma_tile(n, cout)
+    return tile if cin % 64 == 0 else tile._replace(kernel="wgmma_padded")
+
+
+def padded_channels(c: int) -> int:
+    """c rounded up to the wgmma kernel's K chunk of 64 channels."""
+    return -(-c // 64) * 64
+
+
+def pad_channels(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """t with zeros appended along `dim` up to padded_channels (a copy)."""
+    pad = [0, 0] * (t.dim() - 1 - dim) + [0, padded_channels(t.shape[dim]) - t.shape[dim]]
+    return F.pad(t, pad)
 
 
 def pick_batch_tile(n: int, preferred: int = 16) -> int:
@@ -161,6 +179,9 @@ def _conv_wgmma(x: torch.Tensor, w: torch.Tensor, route: ConvRoute) -> torch.Ten
 def _launch(x: torch.Tensor, w: torch.Tensor, route: ConvRoute) -> torch.Tensor:
     if route.kernel == "wgmma":
         return _conv_wgmma(x, w, route)
+    if route.kernel == "wgmma_padded":
+        _launch_checks(x, w)
+        return _conv_wgmma(pad_channels(x, 3), pad_channels(w, 2), route)
     return _conv_mma_sync(x, w, route.boards)
 
 

@@ -7,35 +7,77 @@ replaces):
     y = relu(z * sigmoid(se_scale(z)) + se_shift(z) + x)
 
 with (s, b) the folded eval-mode BatchNorm affines in a (4, C) f32 array
-[s1, b1, s2, b2]. On a CUDA tensor `fused_gpbias_block` launches the
-hand-written sm_90a kernel (csrc/fused_block.cu), which keeps x, h and every
-intermediate vector on the SM, or raises; only a CPU tensor takes the plain
-version `fused_gpbias_block_reference`. `fused_gpbias_block.launches` counts
-kernel launches.
+[s1, b1, s2, b2]. On a CUDA tensor `fused_gpbias_block` makes one call into
+csrc/fused_block.cu, which enqueues four hand-written sm_90a kernels (the
+pool and gp FCs; conv1 and conv2 on the wgmma + TMA mainloop, whose CTA
+computes 64 or 128 boards at one square; SE and residual), split at the two
+reductions over a board's 81 squares, or raises; h (bf16), conv2's sums
+(f32) and the pool bias cross device memory in scratch the wrapper
+allocates as `block_plan` sizes it. Only a CPU tensor takes the plain version
+`fused_gpbias_block_reference`. `fused_gpbias_block.launches` counts calls
+that launched the kernels.
 
 `fused_block_stage` is the block without SE cut after one stage, written in
 f32 (counterpart of scripts/debug_fused_block.py:run_stage, the TPU bisect
-harness, whose Pallas kernel it replaces): the same kernel source
-templated on a stop stage, so a stage that disagrees with its plain version
-`fused_block_stage_reference` points at the production code.
-`fused_block_stage.launches` counts launches per stage.
+harness, whose Pallas kernel it replaces): the block's own kernels with the
+epilogue cut at the stage (csrc/fused_block_stage.cu), so a stage that
+disagrees with its plain version `fused_block_stage_reference` points at the
+production code. `fused_block_stage.launches` counts calls per stage.
 """
 
 from __future__ import annotations
 
 from collections import Counter
+from typing import NamedTuple
 
 import torch
 
 from . import _build
-from .conv3x3 import conv3x3_taps_f32
+from .conv3x3 import ConvRoute, conv3x3_taps_f32, wgmma_tile
 
 __all__ = ["fused_gpbias_block", "fused_gpbias_block_reference", "fused_block_stage",
-           "fused_block_stage_reference", "STAGES"]
+           "fused_block_stage_reference", "block_plan", "BlockPlan", "STAGES"]
 
 SUPPORTED_C = (128, 256)
 # the bisect harness's stop stages, in kernel order
 STAGES = ("conv1", "bnrelu", "pool", "gpbias", "conv2")
+# boards from which a pool CTA takes 4: every one of an H100's 132 SMs still gets a CTA
+POOL_4_FROM = 4 * 132
+
+
+class BlockPlan(NamedTuple):
+    """What the wrapper decides of one block call at (n boards, c channels);
+    grids and shared memory are the C launchers' (csrc/fused_block.cu)."""
+    tile: ConvRoute       # the two convs' wgmma tile (boards x c, persistent)
+    pool_boards: int      # boards per CTA of the pool kernel, 1 or 4
+    g2_bytes: int         # scratch: the pool bias (n, c) f32
+    h_bytes: int          # scratch: h (9, 9, n, c) bf16
+    z_bytes: int          # scratch: conv2's sums (9, 9, n, c) f32
+
+    @property
+    def scratch_bytes(self) -> int:
+        return self.g2_bytes + self.h_bytes + self.z_bytes
+
+
+def block_plan(n: int, c: int, pool_boards: int | None = None) -> BlockPlan:
+    """The launch of fused_gpbias_block for x (9, 9, n, c): a function of
+    the shapes alone, with the pool kernel's boards per CTA fixed to
+    `pool_boards` (1 or 4) or chosen from n.
+
+    The convs take the tile the conv alone takes (`wgmma_tile`: all of c,
+    64 boards while tiles are few waves, 128 beyond). The pool kernel gives
+    a CTA 4 boards from n = POOL_4_FROM: the FC weights a CTA reads from L2
+    (0.26 MB at c = 256) then serve 4 boards; below that one board per CTA
+    keeps more SMs busy. scripts/profile_fused_forward.py times both."""
+    if c not in SUPPORTED_C:
+        raise ValueError(f"CUDA fused block takes C in {SUPPORTED_C}, got {c}")
+    if n < 1:
+        raise ValueError(f"need at least one board, got {n}")
+    if pool_boards is None:
+        pool_boards = 4 if n >= POOL_4_FROM else 1
+    if pool_boards not in (1, 4):
+        raise ValueError(f"pool_boards must be 1 or 4, got {pool_boards}")
+    return BlockPlan(wgmma_tile(n, c), pool_boards, n * c * 4, 81 * n * c * 2, 81 * n * c * 4)
 
 
 def _check(x, w1, w2, bn, gp1_w, gp1_b, gp2_w, gp2_b, se1_w=None, se1_b=None, se2_w=None,
@@ -103,30 +145,42 @@ def fused_gpbias_block_reference(x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_
     return torch.relu(y).reshape(9, 9, n, ch).to(bf16)
 
 
+def _launch_plan(args: tuple, pool_boards: int | None = None) -> BlockPlan:
+    """The plan for CUDA operands, or raise on what the kernels do not take."""
+    x = args[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.shape[3] not in SUPPORTED_C:
+        raise ValueError(f"CUDA fused block takes C in {SUPPORTED_C}, got {x.shape[3]}")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("all fused block operands must be contiguous")
+    return block_plan(x.shape[2], x.shape[3], pool_boards)
+
+
 def fused_gpbias_block(x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b,
-                       se1_w, se1_b, se2_w, se2_b) -> torch.Tensor:
+                       se1_w, se1_b, se2_w, se2_b, *,
+                       pool_boards: int | None = None) -> torch.Tensor:
     """Eval-mode GlobalPoolBias block; x (9, 9, B, C) bf16 -> same shape.
 
     Weights: convs (3, 3, C, C) and FC kernels (in, out) bf16; bn_affine
-    (4, C) and FC biases f32.
+    (4, C) and FC biases f32. `pool_boards` fixes the pool kernel's boards
+    per CTA (`block_plan`; a launch parameter, as the TPU kernel's
+    batch_tile is: the result does not depend on it).
     """
     args = (x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b, se1_w, se1_b, se2_w, se2_b)
     _check(*args)
     if x.device.type == "cpu":
         return fused_gpbias_block_reference(*args)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     n, ch = x.shape[2], x.shape[3]
-    if ch not in SUPPORTED_C:
-        raise ValueError(f"CUDA fused block takes C in {SUPPORTED_C}, got {ch}")
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("all fused block operands must be contiguous")
+    plan = _launch_plan(args, pool_boards)
     lib = _build.load_library()
     out = torch.empty_like(x)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=x.device)
+    g2, h, z = scratch.split((plan.g2_bytes, plan.h_bytes, plan.z_bytes))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.keisei_fused_gpbias_block(
-        *[t.data_ptr() for t in args], out.data_ptr(),
-        n, ch, gp1_w.shape[1], se1_w.shape[1], stream)
+        *[t.data_ptr() for t in args], out.data_ptr(), g2.data_ptr(), h.data_ptr(), z.data_ptr(),
+        n, ch, gp1_w.shape[1], se1_w.shape[1], plan.tile.boards, plan.pool_boards, stream)
     _build.check(lib, err, "fused_gpbias_block launch")
     fused_gpbias_block.launches += 1
     return out
@@ -170,18 +224,17 @@ def fused_block_stage(x, w1, w2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b, *,
         raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
     if x.device.type == "cpu":
         return fused_block_stage_reference(*args, stage=stage)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     n, ch = x.shape[2], x.shape[3]
-    if ch not in SUPPORTED_C:
-        raise ValueError(f"CUDA fused block takes C in {SUPPORTED_C}, got {ch}")
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("all fused block operands must be contiguous")
+    plan = _launch_plan(args)
     lib = _build.load_library()
     out = torch.empty((9, 9, n, ch), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(plan.g2_bytes + plan.h_bytes, dtype=torch.uint8, device=x.device)
+    g2, h = scratch.split((plan.g2_bytes, plan.h_bytes))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.keisei_fused_block_stage(*[t.data_ptr() for t in args], out.data_ptr(), n, ch,
-                                       gp1_w.shape[1], STAGES.index(stage), stream)
+    err = lib.keisei_fused_block_stage(*[t.data_ptr() for t in args], out.data_ptr(),
+                                       g2.data_ptr(), h.data_ptr(), n, ch, gp1_w.shape[1],
+                                       STAGES.index(stage), plan.tile.boards, plan.pool_boards,
+                                       stream)
     _build.check(lib, err, f"fused_block_stage({stage}) launch")
     fused_block_stage.launches[stage] += 1
     return out

@@ -1,11 +1,12 @@
 """Bisect the fused block kernel stage by stage on the card (counterpart of
 scripts/debug_fused_block.py, whose Pallas kernel run_stage it replaces).
 
-`fused_block_stage` (ops/fused_block.py) runs csrc/fused_block.cu's kernel
-cut after one stage (conv1, bnrelu, pool, gpbias, conv2; the block without
-SE), the stage written in f32; each is held against the same stage of the
-plain version. A stage that disagrees points at the production kernel's
-code up to that stage.
+`fused_block_stage` (ops/fused_block.py) runs the block's own kernels
+(csrc/fused_block_stage.cu: the pool kernel and the wgmma convs of
+csrc/fused_block.cu) cut after one stage (conv1, bnrelu, pool, gpbias,
+conv2; the block without SE), the stage written in f32; each is held
+against the same stage of the plain version. A stage that disagrees points
+at the production kernels' code up to that stage.
 
     python -m keisei_tpu_torch.scripts.debug_fused_block
 

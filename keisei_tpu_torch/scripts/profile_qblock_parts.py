@@ -60,7 +60,7 @@ from ..ops import _build
 from ..ops.conv3x3 import conv3x3_taps_f32
 from ..ops.qblock import (_qconv_taps, _qconv_taps_exact, _quantize_tiles, pack_quantized,
                           quantize_conv_weights, quantized_gpbias_block)
-from ..utils.timing import card, graph_ms
+from ..utils.timing import card, graph_ms, trace_kernel_us, traced_kernel_ms
 
 VARIANTS = ("convs", "novpu", "vpuonly", "bf16gemm", "gemmonly")
 ALIASES = {"gemm3d": "gemmonly"}
@@ -256,28 +256,17 @@ def full_block_args(b: int, c: int, bt: int, device, seed: int = 0) -> tuple:
     return tuple(t.to(device).contiguous() for t in args)
 
 
-def full_kernel_ms(args: tuple, bt: int, iters: int = 20) -> dict[str, float]:
-    """ms per launch of each of the block's three kernels, and their sum:
-    their device times in a torch.profiler (CUPTI) trace of `iters` block
-    calls after a warm-up call. Raises unless the trace holds `iters`
-    launches of each kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    quantized_gpbias_block(*args, batch_tile=bt)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            quantized_gpbias_block(*args, batch_tile=bt)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    times = {}
-    for name, kernel in FULL_KERNELS:
-        us = [e.time_range.elapsed_us() for e in kernels if kernel in e.name]
-        if len(us) != iters:
-            raise RuntimeError(f"the trace holds {len(us)} launches of {kernel}, not {iters}")
-        times[name] = sum(us) / iters / 1e3
-    return {**times, "total": sum(times.values())}
+def full_kernel_ms(args: tuple, bt: int,
+                   iters: int = 20) -> tuple[dict[str, float], dict[str, int]]:
+    """ms per launch of each of the block's three kernels and their sum
+    under "total", each the mean over the last `iters` launches in a
+    torch.profiler (CUPTI) trace of block calls (`trace_kernel_us`,
+    `traced_kernel_ms`), and how many launches of each the trace holds.
+    Raises if it holds fewer than `iters` of a kernel."""
+    trace = trace_kernel_us(lambda: quantized_gpbias_block(*args, batch_tile=bt), iters)
+    traced = {name: traced_kernel_ms(trace, kernel, iters) for name, kernel in FULL_KERNELS}
+    times = {name: ms for name, (ms, _) in traced.items()}
+    return {**times, "total": sum(times.values())}, {name: n for name, (_, n) in traced.items()}
 
 
 def conv_ops(b: int, c: int) -> float:
@@ -300,8 +289,9 @@ def measure(device, b: int = B, bt: int = BT,
             ops = 2.0 * DOT_M * DOT_K * DOT_K * DOT_CHAIN
             results[name] = {"ms": ms, "ops": ops, "ctas": -(-DOT_M // DOT_ROWS)}
         elif name == "full":
-            parts = full_kernel_ms(full_block_args(b, CH, bt, device), bt, iters)
-            results[name] = {"ms": parts["total"], "ops": 2 * conv_ops(b, CH), "kernels": parts}
+            parts, traced = full_kernel_ms(full_block_args(b, CH, bt, device), bt, iters)
+            results[name] = {"ms": parts["total"], "ops": 2 * conv_ops(b, CH), "kernels": parts,
+                             "traced": traced}
         else:
             v = _variant(name)
             xq, w1, w2 = part_inputs(v, b, CH, device, seed=1)
@@ -366,6 +356,7 @@ def main(argv: list[str]) -> int:
             line += f", B={b} C={CH} bt={bt})"
         if "kernels" in r:
             line += "  " + " ".join(f"{k}={r['kernels'][k]:.4f}" for k, _ in FULL_KERNELS)
+            line += f"  (the trace holds {sorted(set(r['traced'].values()))} launches of each)"
         print(line, flush=True)
     return 0
 

@@ -1,11 +1,13 @@
 """Timing on the card: the CUDA-event time of a call (cuda_ms; graph_ms with
 the calls replayed from a CUDA graph, for kernels shorter than their launch
-from Python), and the card's name and power limit as nvidia-smi reports them
-(a card set below 700 W runs slower under load, so every recorded time
-stands beside this line)."""
+from Python), the device time of each kernel inside a call from a profiler
+trace (trace_kernel_us, traced_kernel_ms), and the card's name and power limit as nvidia-smi
+reports them (a card set below 700 W runs slower under load, so every
+recorded time stands beside this line)."""
 
 from __future__ import annotations
 
+import re
 import subprocess
 from collections import Counter
 
@@ -27,31 +29,47 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20, counters: tuple[Counter, ...] = ()) -> float:
+def _counts(counter) -> Counter:
+    """A launch counter's counts: a Counter as it is, a wrapper function
+    through its integer `launches`."""
+    return Counter(counter) if isinstance(counter, Counter) else Counter(n=counter.launches)
+
+
+def _add_counts(counter, delta: Counter, sign: int) -> None:
+    if isinstance(counter, Counter):
+        for key, n in delta.items():
+            counter[key] += sign * n
+    else:
+        counter.launches += sign * delta["n"]
+
+
+def graph_ms(fn, iters: int = 20, counters: tuple = ()) -> float:
     """Mean device time of fn() in ms with no host in the loop: `iters`
     calls captured in one CUDA graph after a warm-up call, the graph
     replayed once untimed, then once between CUDA events. cuda_ms of a
     kernel that runs for less time than Python takes to launch it reads the
     host's launch rate instead.
 
-    `counters` are the launch counters of the wrappers fn calls: a wrapper
-    counts when it is called, and under capture nothing is launched, so the
-    capture's counts are taken back and each replay adds them."""
+    `counters` are the launch counters of the wrappers fn calls, each a
+    Counter or a wrapper function that counts in an integer `launches`: a
+    wrapper counts when it is called, and under capture nothing is
+    launched, so the capture's counts are taken back and each replay adds
+    them."""
     fn()
     torch.cuda.synchronize()
-    before = [Counter(c) for c in counters]
+    before = [_counts(c) for c in counters]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(iters):
             fn()
-    per_replay = [Counter(c) - b for c, b in zip(counters, before)]
+    per_replay = [_counts(c) - b for c, b in zip(counters, before)]
     for c, d in zip(counters, per_replay):
-        c.subtract(d)
+        _add_counts(c, d, -1)
 
     def replay() -> None:
         graph.replay()
         for c, d in zip(counters, per_replay):
-            c.update(d)
+            _add_counts(c, d, 1)
 
     replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -61,6 +79,58 @@ def graph_ms(fn, iters: int = 20, counters: tuple[Counter, ...] = ()) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# Calls made inside a trace before the ones that are measured. A trace lacks
+# launches from just after its start (seen on an H100: between none and the
+# first 4 of 21 calls, whole calls and part of one, never a later launch), so
+# these are there to be lost and traced_kernel_ms reads the trace from its end.
+TRACE_LEAD = 5
+
+
+def trace_kernel_us(fn, calls: int) -> dict[str, list[float]]:
+    """Device time in microseconds of every kernel launch, by kernel name
+    and in launch order, in a torch.profiler (CUPTI) trace of TRACE_LEAD +
+    calls calls of fn() after an untraced warm-up call (copies and memsets
+    left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_LEAD):
+            fn()
+            torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    launches = sorted((e.time_range.start, e.name, e.time_range.elapsed_us()) for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.name.lower().startswith(("memcpy", "memset")))
+    times: dict[str, list[float]] = {}
+    for _, name, us in launches:
+        times.setdefault(name, []).append(us)
+    return times
+
+
+def traced_kernel_ms(trace: dict[str, list[float]], pattern: str, calls: int,
+                     per_call: int = 1) -> tuple[float, int]:
+    """Mean ms per launch over the last calls * per_call launches in `trace`
+    (trace_kernel_us(fn, calls)) of the kernels whose name, spaces removed,
+    matches the regular expression `pattern`, where fn launches them
+    `per_call` times; and how many launches of them the trace holds, of the
+    (TRACE_LEAD + calls) * per_call made. Raises if it holds fewer than the
+    mean needs or more than were made, or if the pattern matches two kernels."""
+    names = [name for name in trace if re.search(pattern, name.replace(" ", ""))]
+    if len(names) > 1:  # two kernels' launches would not be in one launch order
+        raise RuntimeError(f"{pattern} matches more than one traced kernel: {names}")
+    us = trace[names[0]] if names else []
+    used, made = calls * per_call, (TRACE_LEAD + calls) * per_call
+    if not used <= len(us) <= made:
+        raise RuntimeError(f"the trace holds {len(us)} launches of {pattern}, not {used} to "
+                           f"{made}: {sorted(trace)}")
+    return sum(us[-used:]) / used / 1e3, len(us)
 
 
 def card() -> str:

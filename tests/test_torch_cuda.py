@@ -18,7 +18,14 @@ The wgmma conv (Cin % 64 == 0) is held to the same bound over tails in B
 and every K depth, to max |err| / max |ref| < 0.02 as the probe script holds
 it, and on one-hot boards (tests/test_torch_wgmma.py's inputs) to equality;
 its tensor maps are kernel arguments, so it must also be right when replayed
-from a CUDA graph on new input values.
+from a CUDA graph on new input values. Any other Cin (the 50 observation
+planes) takes the same kernel after a zero pad to 64 channels, at the same
+bound.
+
+The fused block (four kernels per call) is held to the bf16 bound over
+B in {1, 31, 64, 65, 256, 1024} x C in {128, 256}; it sums in a fixed order
+with no atomics, so a repeat must give equal bits, and like the conv it must
+be right when replayed from a CUDA graph on new values.
 
 The probes' kernels: the boards-per-CTA conv at the bf16 bound above; the
 fused block's stage kernels within 1e-4 of max |ref| for the f32 stages
@@ -31,6 +38,8 @@ dot chain exact in int8 and at the bf16 bound in bf16; tiled_mm exact in
 int8 and within 1e-4 of max |ref| in bf16 (f32 output).
 """
 
+from collections import Counter
+
 import pytest
 import torch
 
@@ -38,18 +47,19 @@ from keisei_tpu_torch.ops import _build
 from keisei_tpu_torch.ops import conv3x3 as conv_ops
 from keisei_tpu_torch.ops.conv3x3 import (WGMMA_BOARDS, ConvRoute, conv3x3_bpc, conv3x3_hwbc,
                                           conv3x3_hwbc_reference, conv_route)
-from keisei_tpu_torch.ops.fused_block import (STAGES, fused_block_stage,
+from keisei_tpu_torch.ops.fused_block import (STAGES, block_plan, fused_block_stage,
                                               fused_block_stage_reference, fused_gpbias_block,
                                               fused_gpbias_block_reference)
 from keisei_tpu_torch.ops.qblock import (pack_quantized, quantize_conv_weights,
                                          quantized_gpbias_block, quantized_gpbias_block_reference)
 from keisei_tpu_torch.scripts import profile_direct_conv as direct
+from keisei_tpu_torch.scripts import profile_fused_forward as fused_profile
 from keisei_tpu_torch.scripts import profile_qblock_parts as qparts
 from keisei_tpu_torch.scripts.debug_fused_block import EXACT_STAGES, stage_inputs
 from keisei_tpu_torch.scripts.profile_conv_alternatives import (mm_inputs, tiled_mm,
                                                                 tiled_mm_reference)
 from keisei_tpu_torch.scripts.profile_int8_mma import mma_chain, mma_chain_reference, probe_inputs
-from keisei_tpu_torch.utils.timing import graph_ms
+from keisei_tpu_torch.utils.timing import TRACE_LEAD, graph_ms
 
 pytestmark = pytest.mark.cuda
 
@@ -109,23 +119,28 @@ def conv_inputs(b, cin, cout, dev, seed):
 def test_conv3x3_wgmma_route_matches_plain(dev, b, cin, cout):
     x, w = conv_inputs(b, cin, cout, dev, seed=b + cin + cout)
     assert conv_route(b, cin, cout).kernel == "wgmma"
-    before = conv3x3_hwbc.route_launches["wgmma"], conv3x3_hwbc.route_launches["mma_sync"]
+    before = Counter(conv3x3_hwbc.route_launches)
     got = conv3x3_hwbc(x, w)
     torch.cuda.synchronize()
-    assert (conv3x3_hwbc.route_launches["wgmma"],
-            conv3x3_hwbc.route_launches["mma_sync"]) == (before[0] + 1, before[1])
+    assert Counter(conv3x3_hwbc.route_launches) - before == Counter({"wgmma": 1})
     ref = conv3x3_hwbc_reference(x, w)
     torch.testing.assert_close(got.float(), ref.float(), rtol=TOL, atol=TOL)
     assert direct.compare_conv(0, got, ref) < 0.02
 
 
-def test_conv3x3_input_conv_stays_on_mma_sync(dev):
-    x, w = conv_inputs(64, 50, 256, dev, seed=5)
-    before = conv3x3_hwbc.route_launches["wgmma"], conv3x3_hwbc.route_launches["mma_sync"]
-    conv3x3_hwbc(x, w)
+@pytest.mark.parametrize("cin,cout", [(50, 256), (46, 128), (100, 256)])
+@pytest.mark.parametrize("b", [1, 65, 1024])
+def test_conv3x3_padded_route_matches_plain(dev, b, cin, cout):
+    """Cin % 64 != 0: zero channels up to 64s, then the wgmma kernel; never
+    the mma.sync kernel."""
+    x, w = conv_inputs(b, cin, cout, dev, seed=b + cin)
+    before = Counter(conv3x3_hwbc.route_launches)
+    got = conv3x3_hwbc(x, w)
     torch.cuda.synchronize()
-    assert (conv3x3_hwbc.route_launches["wgmma"],
-            conv3x3_hwbc.route_launches["mma_sync"]) == (before[0], before[1] + 1)
+    assert Counter(conv3x3_hwbc.route_launches) - before == Counter({"wgmma_padded": 1})
+    ref = conv3x3_hwbc_reference(x, w)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=TOL, atol=TOL)
+    assert direct.compare_conv(0, got, ref) < 0.02
 
 
 @pytest.mark.parametrize("cin,cout", [(64, 128), (256, 256)])
@@ -185,7 +200,9 @@ def test_conv3x3_wgmma_raises_and_never_falls_back(dev):
     assert (conv3x3_hwbc.launches, dict(conv3x3_bpc.launches)) == before
 
 
-@pytest.mark.parametrize("b,c,gpc,sec", [(64, 256, 128, 16), (5, 128, 64, 8)])
+@pytest.mark.parametrize("b,c,gpc,sec", [(64, 256, 128, 16), (5, 128, 64, 8),
+                                         # FC widths off the 16-byte weight loads
+                                         (7, 128, 12, 4), (3, 256, 100, 18)])
 def test_fused_block_matches_plain(dev, b, c, gpc, sec):
     args = block_args(b, c, gpc, sec, dev)
     before = fused_gpbias_block.launches
@@ -194,6 +211,61 @@ def test_fused_block_matches_plain(dev, b, c, gpc, sec):
     assert fused_gpbias_block.launches == before + 1
     ref = fused_gpbias_block_reference(*args)
     torch.testing.assert_close(got.float(), ref.float(), rtol=TOL, atol=TOL)
+
+
+BLOCK_GRID = [(b, c) for b in (1, 31, 64, 65, 256, 1024) for c in (128, 256)]
+
+
+@pytest.mark.parametrize("b,c", BLOCK_GRID)
+def test_fused_block_grid_matches_plain_with_equal_bits(dev, b, c):
+    """Partial tiles in B on both tile heights, both widths; a second run
+    gives the same bits (fixed summation order, no atomics)."""
+    args = block_args(b, c, c // 2, c // 16, dev, seed=b + c)
+    assert block_plan(b, c).tile.boards == (128 if b > (512 if c == 256 else 128) else 64)
+    before = fused_gpbias_block.launches
+    got = fused_gpbias_block(*args)
+    again = fused_gpbias_block(*args)
+    torch.cuda.synchronize()
+    assert fused_gpbias_block.launches == before + 2
+    assert torch.equal(got, again)
+    ref = fused_gpbias_block_reference(*args)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=TOL, atol=TOL)
+
+
+def test_fused_block_replays_from_a_graph(dev):
+    """Tensor maps and scratch pointers are captured; replayed after x's
+    values changed in place, the graph computes the new block."""
+    args = block_args(65, 256, 128, 16, dev, seed=3)
+    fused_gpbias_block(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out = fused_gpbias_block(*args)
+    args[0].copy_(block_args(65, 256, 128, 16, dev, seed=4)[0])
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), fused_gpbias_block_reference(*args).float(),
+                               rtol=TOL, atol=TOL)
+
+
+def test_fused_block_raises_and_never_falls_back(dev):
+    """C = 192 and non-contiguous operands raise; no launch is counted."""
+    before = fused_gpbias_block.launches, dict(fused_block_stage.launches)
+    args = block_args(4, 192, 96, 12, dev)
+    with pytest.raises(ValueError, match="C in"):
+        fused_gpbias_block(*args)
+    with pytest.raises(ValueError, match="C in"):
+        fused_block_stage(*args[:8], stage="conv2")
+    x, *rest = block_args(4, 128, 64, 8, dev)
+    strided = torch.cat([x, x], dim=3)[..., :128]
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_gpbias_block(strided, *rest)
+    w1t = rest[0].transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_gpbias_block(x, w1t, *rest[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_block_stage(strided, *rest[:7], stage="pool")
+    assert (fused_gpbias_block.launches, dict(fused_block_stage.launches)) == before
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -279,7 +351,7 @@ def test_conv3x3_bpc_wgmma_matches_plain(dev, bpc, b, cin, cout):
 
 
 @pytest.mark.parametrize("stage", STAGES)
-@pytest.mark.parametrize("b,c", [(32, 128), (5, 256)])
+@pytest.mark.parametrize("b,c", [(32, 128), (5, 256), (130, 128), (600, 256)])
 def test_fused_block_stage_matches_plain(dev, stage, b, c):
     args = stage_inputs(b, c, 64, dev)
     before = fused_block_stage.launches[stage]
@@ -307,9 +379,11 @@ def test_qblock_part_matches_plain(dev, variant, b, c):
 def test_qblock_full_kernel_times_come_from_the_trace(dev):
     args = qparts.full_block_args(64, 256, 32, dev)
     before = quantized_gpbias_block.launches
-    times = qparts.full_kernel_ms(args, 32, iters=3)
-    assert quantized_gpbias_block.launches == before + 4  # a warm-up call and 3 traced
+    times, traced = qparts.full_kernel_ms(args, 32, iters=3)
+    # a warm-up call, then TRACE_LEAD + 3 traced ones; the means are over the last 3
+    assert quantized_gpbias_block.launches == before + 1 + TRACE_LEAD + 3
     assert all(times[name] > 0 for name, _ in qparts.FULL_KERNELS)
+    assert all(3 <= traced[name] <= TRACE_LEAD + 3 for name, _ in qparts.FULL_KERNELS)
     assert times["total"] == pytest.approx(sum(times[name] for name, _ in qparts.FULL_KERNELS))
 
 
@@ -318,6 +392,35 @@ def test_graph_ms_counts_replayed_launches(dev):
     before = tiled_mm.launches["int8"]
     graph_ms(lambda: tiled_mm(a, bt), iters=5, counters=(tiled_mm.launches,))
     assert tiled_mm.launches["int8"] == before + 1 + 2 * 5  # a warm-up call, 2 replays of 5
+    # a wrapper that counts in an integer is passed itself
+    args = block_args(4, 128, 64, 8, dev)
+    before = fused_gpbias_block.launches
+    graph_ms(lambda: fused_gpbias_block(*args), iters=3, counters=(fused_gpbias_block,))
+    assert fused_gpbias_block.launches == before + 1 + 2 * 3
+
+
+def test_fused_block_kernel_times_come_from_the_trace(dev):
+    blocks = [block_args(64, 256, 128, 16, dev, seed=s)[1:] for s in range(2)]
+    x = block_args(64, 256, 128, 16, dev)[0]
+    before = fused_gpbias_block.launches
+    times, traced = fused_profile.block_kernels_ms(x, blocks, iters=2)
+    # a warm-up trunk, then TRACE_LEAD + 2 traced ones of 2 blocks each
+    assert fused_gpbias_block.launches == before + 2 * (1 + TRACE_LEAD + 2)
+    names = [name for name, _ in fused_profile.BLOCK_KERNELS]
+    assert all(times[n] > 0 for n in names)
+    assert all(2 * 2 <= traced[n] <= 2 * (TRACE_LEAD + 2) for n in names)
+    assert times["total"] == pytest.approx(sum(times[n] for n in names))
+
+
+@pytest.mark.parametrize("b,c", [(5, 128), (64, 256), (530, 256)])
+def test_fused_block_pool_boards_give_equal_bits(dev, b, c):
+    """1 or 4 boards per CTA of the pool kernel is a launch parameter only."""
+    args = block_args(b, c, c // 2, c // 16, dev, seed=b)
+    one = fused_gpbias_block(*args, pool_boards=1)
+    four = fused_gpbias_block(*args, pool_boards=4)
+    assert torch.equal(one, four) and torch.equal(one, fused_gpbias_block(*args))
+    with pytest.raises(ValueError, match="pool_boards"):
+        fused_gpbias_block(*args, pool_boards=2)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])

@@ -28,13 +28,16 @@ from keisei_tpu_torch.scripts.debug_fused_block import B as STAGE_B, C as STAGE_
 torch.set_num_threads(2)
 
 MMA_SYNC = "mma_sync"
+PADDED = "wgmma_padded"
+REFUSED = ("refused",)   # conv_route raises: no kernel takes the output width
 
 
 @pytest.mark.parametrize("n,cin,cout,want", [
-    # the main path's input conv (b40c256, 50 planes) at the smoke's and the profile's N
-    (64, 50, 256, (MMA_SYNC, 1, 256)), (256, 50, 256, (MMA_SYNC, 1, 256)),
-    (1024, 50, 256, (MMA_SYNC, 1, 256)), (64, 46, 256, (MMA_SYNC, 1, 256)),
-    (64, 50, 128, (MMA_SYNC, 1, 128)),
+    # the 50 observation planes (b40c256) at the smoke's and the profile's N: the
+    # wgmma kernel after a zero pad to 64 channels, on the tile Cin = 64 takes
+    (64, 50, 256, (PADDED, 64, 256)), (256, 50, 256, (PADDED, 64, 256)),
+    (1024, 50, 256, (PADDED, 128, 256)), (64, 46, 256, (PADDED, 64, 256)),
+    (64, 50, 128, (PADDED, 64, 128)),
     # the trunk's convs: 64 boards while the tiles are few waves, 128 beyond
     (1, 256, 256, ("wgmma", 64, 256)), (64, 256, 256, ("wgmma", 64, 256)),
     (65, 256, 256, ("wgmma", 64, 256)), (256, 256, 256, ("wgmma", 64, 256)),
@@ -45,16 +48,20 @@ MMA_SYNC = "mma_sync"
     (64, 128, 128, ("wgmma", 64, 128)), (128, 128, 128, ("wgmma", 64, 128)),
     (129, 128, 128, ("wgmma", 128, 128)), (STAGE_B, STAGE_C, STAGE_C, ("wgmma", 64, 128)),
     (200, 64, 256, ("wgmma", 64, 256)), (1024, 64, 128, ("wgmma", 128, 128)),
-    # widths neither kernel's fast path covers stay with mma.sync (which refuses Cout)
-    (8, 32, 32, (MMA_SYNC, 1, 32)), (8, 96, 256, (MMA_SYNC, 1, 256)),
-    (8, 64, 64, (MMA_SYNC, 1, 64)),
+    # other output widths are refused, not routed to a kernel that refuses; any Cin pads
+    (8, 32, 32, REFUSED), (8, 96, 256, (PADDED, 64, 256)),
+    (8, 64, 64, REFUSED),
 ])
 def test_conv_route(n, cin, cout, want):
+    if want == REFUSED:
+        with pytest.raises(ValueError, match="Cout"):
+            conv_route(n, cin, cout)
+        return
     route = conv_route(n, cin, cout)
     assert (route.kernel, route.boards, route.cout_tile) == want
-    assert route.persistent == (route.kernel == "wgmma")
-    if route.kernel == "wgmma":
-        assert cin % 64 == 0 and cout % route.cout_tile == 0 and route.boards in WGMMA_BOARDS
+    assert route.persistent and route.kernel != MMA_SYNC
+    assert (cin % 64 == 0) == (route.kernel == "wgmma")
+    assert cout % route.cout_tile == 0 and route.boards in WGMMA_BOARDS
 
 
 @pytest.mark.parametrize("boards", WGMMA_BOARDS)
