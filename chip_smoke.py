@@ -12,9 +12,11 @@ small size, then the scripts at their own sizes.
 The 3x3 conv is checked on every route (wgmma fed by TMA for Cin % 64 == 0,
 the same kernel after a zero pad of the channels for the 50 observation
 planes, mma.sync with 1 / 2 / 4 boards per CTA), with the per-route launch
-counter showing which one ran; the fused block (four kernels per call) over
-a grid of batch sizes and widths, twice with equal bits and replayed from a
-CUDA graph.
+counter showing which one ran; the fused block (four kernels per call) and
+the int8 block (six kernels per call, its convs on s8 wgmma) over 40 weight
+sets at B=64/256/1024, each timed from a CUDA graph of the 40 calls with its
+kernels from a trace, and over a grid of batch sizes and widths, twice with
+equal bits and replayed from a CUDA graph.
 
     python3 chip_smoke.py
 
@@ -304,12 +306,12 @@ def main() -> int:
                                               conv_route, pad_channels)
     from keisei_tpu_torch.ops.fused_block import (block_plan, fused_gpbias_block,
                                                   fused_gpbias_block_reference)
-    from keisei_tpu_torch.ops.qblock import (pack_quantized, quantize_conv_weights,
-                                             quantized_gpbias_block,
+    from keisei_tpu_torch.ops.qblock import (pack_quantized, qblock_plan, quantized_gpbias_block,
                                              quantized_gpbias_block_reference)
     from keisei_tpu_torch.scripts import profile_direct_conv as direct
     from keisei_tpu_torch.scripts import profile_fused_forward as fused
     from keisei_tpu_torch.scripts import profile_int8_mma as probe
+    from keisei_tpu_torch.scripts import profile_qblock_parts as qparts
     from keisei_tpu_torch.training.checkpoint import load_checkpoint
     from keisei_tpu_torch.training.config import load_config
     from keisei_tpu_torch.training.loop import SelfPlayTrainer
@@ -420,6 +422,41 @@ def main() -> int:
                                                  library_ms=None, kernels_ms=parts,
                                                  traced_launches=traced, **work)
 
+    def check_int8_trunk(b: int, x: torch.Tensor, blocks: list) -> None:
+        """The int8 block over the same 40 weight sets, quantized as the int8
+        forward's prepare does, each held to its plain version at the
+        card-test bound (outputs at most 1 level apart, >= 99% identical,
+        scales within rtol 1e-4); its time over the 40 (one CUDA graph of the
+        40-call trunk), its six kernels' from a trace, the plain version's."""
+        qblocks = [qparts.int8_weights(*wts) for wts in blocks]
+        xq, sx = pack_quantized(x.float(), 32)
+        diffs = [int8_block_diff(quantized_gpbias_block(xq, sx, *wts, batch_tile=32),
+                                 quantized_gpbias_block_reference(xq, sx, *wts, batch_tile=32), 32)
+                 for wts in qblocks]
+        worst = {"levels": max(d["levels"] for d in diffs),
+                 "identical": min(d["identical"] for d in diffs),
+                 "scale_rel": max(d["scale_rel"] for d in diffs),
+                 "abs": max(d["abs"] for d in diffs)}
+        if not int8_block_ok(worst):
+            raise AssertionError(f"int8 block B={b} disagrees with its plain version: {worst}")
+        ms = qparts.block_ms(xq, sx, qblocks)
+        parts, traced = qparts.block_kernels_ms(xq, sx, qblocks)
+        plain_ms = cuda_ms(lambda: qparts.trunk(quantized_gpbias_block_reference, xq, sx, qblocks),
+                           iters=2, warmup=1) / 40
+        work = bound({"int8": 2 * 2.0 * 81 * b * 9 * 256 * 256, "bf16": fc_ops(b, 256, gpc, sec)},
+                     2.0 * 81 * b * 256 + 2 * 9.0 * 256 * 256 + fc_bytes(256, gpc, sec)
+                     + 4.0 * 2 * (b // 32))
+        print(f"phase3 quantized_gpbias_block B={b} C=256 bt=32 weight_sets=40 "
+              f"max_level_diff={worst['levels']} min_identical={worst['identical']:.5f} "
+              f"max_scale_rel_err={worst['scale_rel']:.3g} max_abs_err={worst['abs']:.4g} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={work['bound_ms']:.4f} "
+              + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
+              + f" traced_launches={traced}")
+        if b == SMOKE_GAMES:
+            kernels["quantized_gpbias_block"] = dict(
+                max_abs_err=worst["abs"], ms=ms, plain_ms=plain_ms, library_ms=None,
+                kernels_ms=parts, traced_launches=traced, **work)
+
     for b in (64, 256):
         for cin in (50, 256):
             check_conv(b, cin, g)
@@ -436,49 +473,8 @@ def main() -> int:
             raise AssertionError(f"fused block B={b} disagrees with its plain version")
         time_block(b, x, blocks, (abs_err, rel_err))
 
-        # the int8 block over the same 40 weight sets, quantized as the
-        # int8 forward's prepare does; each set is held to its plain version
-        # at the card-test bound: outputs at most 1 level apart, >= 99%
-        # identical, scales within rtol 1e-4
-        qblocks = []
-        for w1, w2, bn, *fcs in blocks:
-            wq1, ws1 = quantize_conv_weights(w1)
-            wq2, ws2 = quantize_conv_weights(w2)
-            qblocks.append((wq1, wq2, torch.stack([bn[0] * ws1, bn[1], bn[2] * ws2, bn[3]]),
-                            *fcs))
+        check_int8_trunk(b, x, blocks)
         del blocks
-        xq, sx = pack_quantized(x.float(), 32)
-        diffs = [int8_block_diff(quantized_gpbias_block(xq, sx, *wts, batch_tile=32),
-                                 quantized_gpbias_block_reference(xq, sx, *wts, batch_tile=32), 32)
-                 for wts in qblocks]
-        worst = {"levels": max(d["levels"] for d in diffs),
-                 "identical": min(d["identical"] for d in diffs),
-                 "scale_rel": max(d["scale_rel"] for d in diffs),
-                 "abs": max(d["abs"] for d in diffs)}
-
-        def qtrunk(fn):
-            y, s = xq, sx
-            for wts in qblocks:
-                y, s = fn(y, s, *wts, batch_tile=32)
-            return y
-
-        ms = cuda_ms(lambda: qtrunk(quantized_gpbias_block), iters=5) / 40
-        plain_ms = cuda_ms(lambda: qtrunk(quantized_gpbias_block_reference), iters=2,
-                           warmup=1) / 40
-        print(f"phase3 quantized_gpbias_block B={b} C=256 bt=32 weight_sets=40 "
-              f"max_level_diff={worst['levels']} min_identical={worst['identical']:.5f} "
-              f"max_scale_rel_err={worst['scale_rel']:.3g} max_abs_err={worst['abs']:.4g} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        if not int8_block_ok(worst):
-            raise AssertionError(f"int8 block B={b} disagrees with its plain version: {worst}")
-        if b == SMOKE_GAMES:
-            kernels["quantized_gpbias_block"] = dict(
-                max_abs_err=worst["abs"], ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound({"int8": 2 * 2.0 * 81 * b * 9 * 256 * 256,
-                         "bf16": fc_ops(b, 256, gpc, sec)},
-                        2.0 * 81 * b * 256 + 2 * 9.0 * 256 * 256 + fc_bytes(256, gpc, sec)
-                        + 4.0 * 2 * (b // 32)))
-        del qblocks
 
     # the block over partial tiles of both heights and both widths, each twice
     # with equal bits (fixed summation order, no atomics), once replayed from a
@@ -522,7 +518,53 @@ def main() -> int:
     x = torch.relu(torch.randn(9, 9, 1024, 256, generator=g3, device=dev)).to(torch.bfloat16)
     time_block(1024, x, blocks, max_errors(fused_gpbias_block(x, *blocks[0]),
                                            fused_gpbias_block_reference(x, *blocks[0])))
+    check_int8_trunk(1024, x, blocks)
     del blocks, x, wts
+
+    # the int8 block over B in {32, 64, 96, 256, 1024} (96: a partial 64-board
+    # tile) x C in {128, 256}, each twice with equal bits (the tile maxima are
+    # atomicMax on f32 bits, which does not depend on order), and once from a
+    # CUDA graph on new values (the maxima zeroed inside the replay); a
+    # generator of its own keeps the streams above as they were
+    g5 = torch.Generator(device=dev).manual_seed(6)
+
+    def int8_inputs(b: int, c: int) -> tuple:
+        x = torch.relu(torch.randn(9, 9, b, c, generator=g5, device=dev))
+        return (*pack_quantized(x, 32),
+                *qparts.int8_weights(*fused.block_weights(c, c // 2, c // 16, g5, dev)))
+
+    for c in (128, 256):
+        for b in (32, 64, 96, 256, 1024):
+            args = int8_inputs(b, c)
+            got, again = (quantized_gpbias_block(*args, batch_tile=32) for _ in range(2))
+            d = int8_block_diff(got, quantized_gpbias_block_reference(*args, batch_tile=32), 32)
+            repeat = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+            tile = qblock_plan(b, c).tile.boards
+            print(f"phase3 quantized_gpbias_block B={b} C={c} tile={tile}x{c} "
+                  f"max_level_diff={d['levels']} identical={d['identical']:.5f} "
+                  f"scale_rel_err={d['scale_rel']:.3g} repeat_equal={repeat}")
+            if not (repeat and int8_block_ok(d)):
+                raise AssertionError(f"int8 block B={b} C={c}: {d}, repeat_equal={repeat}")
+    args = int8_inputs(96, 256)
+    quantized_gpbias_block(*args, batch_tile=32)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out = quantized_gpbias_block(*args, batch_tile=32)
+    new = int8_inputs(96, 256)
+    args[0].copy_(new[0])
+    args[1].copy_(new[1])
+    for replay in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        d = int8_block_diff(out, quantized_gpbias_block_reference(*args, batch_tile=32), 32)
+        if not int8_block_ok(d):
+            raise AssertionError(f"int8 block replayed from a CUDA graph on new values disagrees "
+                                 f"with its plain version: {d}")
+    print(f"phase3 quantized_gpbias_block graph replay (twice) on new values B=96 C=256 "
+          f"max_level_diff={d['levels']} identical={d['identical']:.5f} "
+          f"scale_rel_err={d['scale_rel']:.3g}")
+    del graph, out, args, new
 
     # the trunk conv at the probes' batch, then the wgmma conv's tails and
     # every K depth, and one-hot boards whose every tap holds its own integers
@@ -643,7 +685,12 @@ def main() -> int:
         # rounding flips carried through 40 blocks move them by more than
         # their margins (measured on the H100: 0.625 against the plain int8
         # forward, with every logit within 0.066 of it).
+        quantized_gpbias_block.launches = 0
         q = qfwd(qweights, obs)
+        torch.cuda.synchronize()
+        if quantized_gpbias_block.launches != 40:
+            raise AssertionError(f"one int8 forward must launch 40 int8 blocks: "
+                                 f"{quantized_gpbias_block.launches}")
         qp = qplain(qweights, obs)
         torch.cuda.synchronize()
         errs = {k: float((getattr(q, k) - getattr(qp, k)).abs().max())
@@ -662,7 +709,7 @@ def main() -> int:
               f"score_max_abs_err={errs['score_lead']:.4g} top1_agree={qp_agree:.3f}; "
               f"vs_f32: policy_rel_err={q_err:.4g} (fused bf16 {bf_err:.4g}) top1_agree={q_top1:.3f} "
               f"value_max_abs_err={q_verr:.4g}; int8_forward_ms={int8_ms:.3f} "
-              f"fused_forward_ms={fused_ms:.3f}")
+              f"fused_forward_ms={fused_ms:.3f} int8_block_launches=40")
         plain_ok = (torch.allclose(q.policy_logits, qp.policy_logits, rtol=0.1, atol=0.15)
                     and torch.allclose(q.value_logits, qp.value_logits, rtol=0.1, atol=0.1)
                     and torch.allclose(q.score_lead, qp.score_lead, rtol=0.1, atol=0.1))

@@ -33,7 +33,6 @@ namespace keisei {
 
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kRows = 82;       // 81 squares + the zero row
-constexpr int kZeroRow = 81;
 constexpr int kMTiles = 6;      // 96 rows of M
 constexpr int kKStage = 32;     // Cin rows of weights per pipeline stage
 
@@ -106,10 +105,6 @@ __device__ __forceinline__ int swz8(int row, int chunk, int width) {
 // swizzled tile whose rows are `width` bf16 wide.
 __device__ __forceinline__ int swz(int row, int chunk, int width) {
   return row * width + ((chunk ^ (row & 7)) << 3);
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // Load boards [board0, board0 + nb) of a (9, 9, B, Cin) bf16 activation

@@ -1,26 +1,30 @@
-// The 3x3 conv's wgmma + TMA mainloop, shared by conv3x3_wgmma.cu (the conv
-// alone) and fused_block_common.cuh (the fused block's two convs): the same
-// kernel, templated on what happens to a finished accumulator tile (the
-// epilogue functor). sm_90a only.
+// The 3x3 conv's wgmma + TMA mainloop, shared by conv3x3_wgmma.cu (the bf16
+// conv alone), fused_block_common.cuh (the bf16 block's two convs) and
+// qblock.cu / qblock_parts.cu (the int8 block's two convs and its stripped
+// variants): one kernel, templated on the operand type (ConvBf16, ConvS8) and
+// on what happens to a finished accumulator tile (the epilogue functor).
+// sm_90a only.
 //
-// x (9, 9, B, Cin) bf16, w (3, 3, Cin, Cout) bf16, Cin a multiple of 64:
+// x (9, 9, B, Cin), bf16 or int8; Cin a multiple of one K step (64 bf16 or
+// 128 int8 channels: one 128-byte row):
 //
 // - The layout is square-major, board-minor: for a fixed square the B boards
 //   are B contiguous rows of Cin channels. So the GEMM's M runs over boards
 //   at ONE output square (64 or 128 of them), not over the squares of one
 //   board. The A operand of tap (di, dj) is then x[i+di-1, j+dj-1,
-//   b0:b0+BM, k0:k0+64], a dense box of the 4-D tensor: one TMA load, no
+//   b0:b0+BM, k0:k0+K step], a dense box of the 4-D tensor: one TMA load, no
 //   gather. A square off the board is a coordinate of -1 or 9, which TMA
 //   fills with zeros: that IS the SAME padding. Boards past B are
 //   zero-filled the same way and masked at the store.
-// - The weights stay HWIO: a stage's 64 x NT slice is NT/64 boxes of 64
-//   input rows x 64 output channels, read N-contiguous through the wgmma
-//   transpose bit. No per-call transpose of w.
+// - The weights are read as they are stored, with no per-call transpose
+//   (ConvBf16 / ConvS8 below): bf16 HWIO N-contiguous through the wgmma
+//   transpose bit, int8 (3, 3, Cout, Cin) K-contiguous (the integer wgmma
+//   has no transpose bit).
 // - One producer thread keeps TMA loads in flight into a ring of STAGES
-//   stages (A: BM x 64, W: 64 x NT, both bf16, 128-byte swizzled); one
-//   consumer warpgroup per 64 rows of the tile holds its 64 x NT f32
-//   accumulator in registers over all 9 taps x Cin/64 K steps, with one
-//   wgmma group in flight while the next stage's is started. Full / empty
+//   stages (A: BM x 128 bytes, W: 128 bytes x NT, both 128-byte swizzled);
+//   one consumer warpgroup per 64 rows of the tile holds its 64 x NT f32 or
+//   s32 accumulator in registers over all 9 taps x Cin / K step stages, with
+//   one wgmma group in flight while the next stage's is started. Full / empty
 //   mbarriers only: no __syncthreads() in the loop. With two consumer
 //   warpgroups the producer gives its registers up (setmaxnreg).
 // - The grid may be persistent: one CTA per SM slot walks tiles t, t + grid,
@@ -30,13 +34,15 @@
 //   writes it out; store_tile_bf16 / store_tile_mapped below give every lane
 //   contiguous channels to store, masked for boards >= B.
 //
-// Tiles (boards x output channels, stages, CTAs per SM):
+// Tiles (boards x output channels, stages, CTAs per SM; a stage's bytes are
+// the same for both types):
 //   128 x 256, 4 stages of 48 KB, 1   64 x 256, 5 stages of 40 KB, 1
 //   128 x 128, 6 stages of 32 KB, 1   64 x 128, 4 stages of 24 KB, 2
-// Every epilogue is a kernel of its own (a template instantiation), and the
-// conv alone is compiled in its own source file: the 64 x 256 tile, whose
-// single consumer warpgroup has no partner to fill the gaps between its
-// instructions, lost 10-17% when a second variant shared its kernel body.
+// Every epilogue and operand type is a kernel of its own (a template
+// instantiation), and the bf16 conv alone is compiled in its own source file:
+// the 64 x 256 tile, whose single consumer warpgroup has no partner to fill
+// the gaps between its instructions, lost 10-17% when a second variant
+// shared its kernel body.
 #pragma once
 
 #include "wgmma_common.cuh"
@@ -46,12 +52,89 @@ namespace keisei {
 template <int WGS, int NT, int STAGES>
 struct ConvTile {
   static constexpr int kRows = 64 * WGS;                  // boards per CTA
-  static constexpr int kABytes = kRows * wg::kRowBytes;   // BM boards x 64 channels
-  static constexpr int kWAtom = 64 * wg::kRowBytes;       // 64 input rows x 64 output channels
-  static constexpr int kWBytes = kWAtom * (NT / 64);
+  static constexpr int kABytes = kRows * wg::kRowBytes;   // BM boards x one K step
+  static constexpr int kWBytes = NT * wg::kRowBytes;      // one K step x NT output channels
   static constexpr int kStage = kABytes + kWBytes;
   static constexpr int kThreads = 128 * (WGS + 1);
   static constexpr int kSmem = STAGES * kStage + 2 * STAGES * 8 + wg::kAtomBytes;
+};
+
+// ---- the operand types ------------------------------------------------------------
+//
+// What differs between the bf16 and the int8 conv: the element, the K step
+// (one 128-byte row), the accumulator, how the weights are mapped and loaded,
+// and the wgmma a stage issues (four of k16 or k32 per 128-byte row).
+
+// bf16 x bf16 -> f32. w (3, 3, Cin, Cout) HWIO, a 2-D map {Cout, 9 Cin}: a
+// stage's weights are NT / 64 boxes of 64 K rows x 64 output channels (an
+// atom of 8,192 bytes each), read MN-major through the transpose bit.
+struct ConvBf16 {
+  using Acc = float;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr int kElem = 2;
+  static constexpr int kKStep = wg::kRowBytes / kElem;  // 64 channels
+  static constexpr int kWAtom = 64 * wg::kRowBytes;
+
+  template <int NT>
+  static int weight_map(CUtensorMap* map, const void* w, int Cin, int Cout) {
+    const cuuint64_t dims[2] = {(cuuint64_t)Cout, (cuuint64_t)9 * Cin};
+    const cuuint64_t strides[1] = {(cuuint64_t)Cout * kElem};
+    const cuuint32_t box[2] = {64, 64};
+    return wg::make_tensor_map(map, kType, 2, w, dims, strides, box);
+  }
+  template <int NT>
+  static __device__ __forceinline__ void load_weights(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int tap, int kc, int n0,
+                                                      int Cin, int Cout) {
+#pragma unroll
+    for (int a = 0; a < NT / 64; ++a)
+      wg::tma_load_2d(dst + a * kWAtom, map, bar, n0 + a * 64, tap * Cin + kc * kKStep);
+  }
+  template <int NT>
+  static __device__ __forceinline__ void mma(Acc (&acc)[NT / 2], uint32_t a_s, uint32_t w_s) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = wg::smem_desc(a_s + kk * 32, 16, wg::kAtomBytes);
+      const uint64_t dw = wg::smem_desc(w_s + kk * 16 * wg::kRowBytes, kWAtom, wg::kAtomBytes);
+      if constexpr (NT == 256) wg::wgmma_bf16_n256<1>(acc, da, dw, 1);
+      else wg::wgmma_bf16_n128<1>(acc, da, dw, 1);
+    }
+  }
+};
+
+// s8 x s8 -> s32. w (3, 3, Cout, Cin) int8, K-contiguous per output channel, a
+// 2-D map {Cin, 9 Cout}: a stage's weights are one box of 128 K bytes x NT
+// output channels, read K-major like the activations (the integer wgmma has
+// no transpose bit). At C = 256 a tile is 2 K steps x 9 taps = 18 stages.
+struct ConvS8 {
+  using Acc = int;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr int kElem = 1;
+  static constexpr int kKStep = wg::kRowBytes;  // 128 channels
+
+  template <int NT>
+  static int weight_map(CUtensorMap* map, const void* w, int Cin, int Cout) {
+    const cuuint64_t dims[2] = {(cuuint64_t)Cin, (cuuint64_t)9 * Cout};
+    const cuuint64_t strides[1] = {(cuuint64_t)Cin};
+    const cuuint32_t box[2] = {wg::kRowBytes, NT};
+    return wg::make_tensor_map(map, kType, 2, w, dims, strides, box);
+  }
+  template <int NT>
+  static __device__ __forceinline__ void load_weights(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int tap, int kc, int n0,
+                                                      int Cin, int Cout) {
+    wg::tma_load_2d(dst, map, bar, kc * kKStep, tap * Cout + n0);
+  }
+  template <int NT>
+  static __device__ __forceinline__ void mma(Acc (&acc)[NT / 2], uint32_t a_s, uint32_t w_s) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = wg::smem_desc(a_s + kk * 32, 16, wg::kAtomBytes);
+      const uint64_t dw = wg::smem_desc(w_s + kk * 32, 16, wg::kAtomBytes);
+      if constexpr (NT == 256) wg::wgmma_s8_n256(acc, da, dw, 1);
+      else wg::wgmma_s8_n128(acc, da, dw, 1);
+    }
+  }
 };
 
 // ---- the accumulator fragment on its way to (9, 9, B, Cout) -------------------
@@ -84,6 +167,13 @@ __device__ __forceinline__ void store_tile_bf16(const float (&acc)[NT / 2],
   }
 }
 
+__device__ __forceinline__ float4 channels4(const float (&lo)[2], const float (&hi)[2]) {
+  return make_float4(lo[0], lo[1], hi[0], hi[1]);
+}
+__device__ __forceinline__ int4 channels4(const int (&lo)[2], const int (&hi)[2]) {
+  return make_int4(lo[0], lo[1], hi[0], hi[1]);
+}
+
 __device__ __forceinline__ void store_channels(float* dst, const float4& v) {
   *reinterpret_cast<float4*>(dst) = v;
 }
@@ -92,27 +182,36 @@ __device__ __forceinline__ void store_channels(__nv_bfloat16* dst, const float4&
   *reinterpret_cast<uint2*>(dst) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
                                               *reinterpret_cast<const uint32_t*>(&hi));
 }
+__device__ __forceinline__ void store_channels(int8_t* dst, const char4& v) {
+  *reinterpret_cast<char4*>(dst) = v;
+}
 
-// f32 or bf16 out, the sums mapped per channel first: lanes q and q ^ 1 trade
-// halves of two 8-channel blocks in f32, so that a lane holds 4 adjacent
+// f32, bf16 or int8 out, the sums mapped per channel first: lanes q and q ^ 1
+// trade halves of two 8-channel blocks, so that a lane holds 4 adjacent
 // channels n .. n + 3 of one row. `f.cols(n)` loads what f needs per channel
 // (shared by the lane's two rows), `f.row(n, b, B, Cout)` what it needs per
-// board and channel, and `f(v, cols, row)` maps the four sums in place; one
-// rounding at the store if OutT is bf16.
+// board and channel, and `f(v, cols, row)` maps the four sums (a float4 or
+// an int4) to what is stored: a float4 (one rounding at the store if OutT is
+// bf16) or a char4.
 //
 // The tile goes out in NT / 8 steps of 4 channels of one row. f's loads are
 // plain loads, which the compiler keeps between the stores they were written
 // between (they might alias), so their order is this function's: the per-row
-// load of step s + kAhead is started before step s is mapped and stored, which
-// keeps kAhead loads from L2 in flight at 4 registers each; the per-channel
-// loads run 16 channels ahead. (Read-only loads
+// load of step s + AHEAD (even) is started before step s is mapped and
+// stored, which keeps AHEAD loads from L2 in flight at 4 registers each; the
+// per-channel loads run 16 channels ahead. (Read-only loads
 // left to the compiler start a whole tile's loads at once, run the kernel up
 // to its register limit and spill the accumulator.)
-template <int NT, typename OutT, typename F>
-__device__ __forceinline__ void store_tile_mapped(const float (&acc)[NT / 2],
+// What f.cols / f.row return for an epilogue that loads nothing per channel
+// or per row.
+struct NoLoad {};
+
+template <int NT, int AHEAD = 4, typename OutT, typename AccT, typename F>
+__device__ __forceinline__ void store_tile_mapped(const AccT (&acc)[NT / 2],
                                                   OutT* __restrict__ out, int p, int board, int n0,
                                                   int q, int B, int Cout, const F& f) {
-  constexpr int kSteps = NT / 8, kAhead = 4;
+  constexpr int kSteps = NT / 8, kAhead = AHEAD;
+  static_assert(AHEAD % 2 == 0 && AHEAD <= kSteps, "a ring of whole row pairs");
   const int col = n0 + ((q & 1) ? 8 + 2 * (q - 1) : 2 * q);
   decltype(f.row(0, 0, 0, 0)) rows[kAhead];
 #pragma unroll
@@ -130,11 +229,10 @@ __device__ __forceinline__ void store_tile_mapped(const float (&acc)[NT / 2],
       const auto row = rows[s % kAhead];
       if (s + kAhead < kSteps)
         rows[s % kAhead] = f.row(col + 16 * ((s + kAhead) >> 1), board + 8 * (s & 1), B, Cout);
-      float lo[2] = {acc[8 * jp + 2 * half], acc[8 * jp + 2 * half + 1]};
-      float hi[2] = {acc[8 * jp + 4 + 2 * half], acc[8 * jp + 4 + 2 * half + 1]};
+      AccT lo[2] = {acc[8 * jp + 2 * half], acc[8 * jp + 2 * half + 1]};
+      AccT hi[2] = {acc[8 * jp + 4 + 2 * half], acc[8 * jp + 4 + 2 * half + 1]};
       wg::quad_pair(lo, hi, q);
-      float4 v = make_float4(lo[0], lo[1], hi[0], hi[1]);
-      f(v, cols, row);
+      const auto v = f(channels4(lo, hi), cols, row);
       if (b < B) store_channels(out + ((size_t)p * B + b) * Cout + n, v);
     }
   }
@@ -144,7 +242,7 @@ __device__ __forceinline__ void store_tile_mapped(const float (&acc)[NT / 2],
 
 // `epi(acc, p, board, n0, q, B, Cout)` writes a finished tile: square p, the
 // lane's first row `board` (its second is board + 8), first channel n0.
-template <int WGS, int NT, int STAGES, int MIN_CTAS, typename Epilogue>
+template <typename K, int WGS, int NT, int STAGES, int MIN_CTAS, typename Epilogue>
 __global__ void __launch_bounds__(128 * (WGS + 1), MIN_CTAS)
 conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                      const __grid_constant__ CUtensorMap map_w, const Epilogue epi, int B, int Cin,
@@ -155,7 +253,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   const uint32_t ring = (wg::smem_addr(smem_raw) + wg::kAtomBytes - 1) & ~(wg::kAtomBytes - 1);
   const uint32_t full = ring + STAGES * T::kStage, empty = full + STAGES * 8;
   const int group = threadIdx.x >> 7;
-  const int k_chunks = Cin >> 6, iters = 9 * k_chunks;
+  const int k_chunks = Cin / K::kKStep, iters = 9 * k_chunks;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -184,11 +282,8 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
           wg::mbar_wait(empty + 8 * stage, phase ^ 1);
           const uint32_t bar = full + 8 * stage, a_s = ring + stage * T::kStage;
           wg::mbar_arrive_expect_tx(bar, T::kStage);
-          wg::tma_load_4d(a_s, &map_x, bar, kc * 64, b0, j + dj - 1, i + di - 1);
-#pragma unroll
-          for (int a = 0; a < NT / 64; ++a)
-            wg::tma_load_2d(a_s + T::kABytes + a * T::kWAtom, &map_w, bar, n0 + a * 64,
-                            tap * Cin + kc * 64);
+          wg::tma_load_4d(a_s, &map_x, bar, kc * K::kKStep, b0, j + dj - 1, i + di - 1);
+          K::template load_weights<NT>(a_s + T::kABytes, &map_w, bar, tap, kc, n0, Cin, Cout);
           if (++stage == STAGES) { stage = 0; phase ^= 1; }
         }
       }
@@ -204,23 +299,16 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int n0 = (tile % tiles_n) * NT, rest = tile / tiles_n;
     const int b0 = (rest % tiles_b) * T::kRows, p = rest / tiles_b;
-    float acc[NT / 2];
+    typename K::Acc acc[NT / 2];
 #pragma unroll
-    for (int e = 0; e < NT / 2; ++e) acc[e] = 0.f;
+    for (int e = 0; e < NT / 2; ++e) acc[e] = 0;
     int prev = -1;
     for (int it = 0; it < iters; ++it) {
       wg::mbar_wait(full + 8 * stage, phase);
       wg::wgmma_fence();
       const uint32_t a_s = ring + stage * T::kStage + group * 64 * wg::kRowBytes;
       const uint32_t w_s = ring + stage * T::kStage + T::kABytes;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t da = wg::smem_desc(a_s + kk * 32, 16, wg::kAtomBytes);
-        const uint64_t dw = wg::smem_desc(w_s + kk * 16 * wg::kRowBytes, T::kWAtom,
-                                          wg::kAtomBytes);
-        if constexpr (NT == 256) wg::wgmma_bf16_n256<1>(acc, da, dw, 1);
-        else wg::wgmma_bf16_n128<1>(acc, da, dw, 1);
-      }
+      K::template mma<NT>(acc, a_s, w_s);
       wg::wgmma_commit();
       if (prev >= 0) {  // the group before has retired: its stage goes back
         wg::wgmma_wait<1>();
@@ -241,25 +329,20 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 
 // ---- host ---------------------------------------------------------------------
 
-template <int WGS, int NT, int STAGES, int MIN_CTAS, typename Epilogue>
+template <typename K, int WGS, int NT, int STAGES, int MIN_CTAS, typename Epilogue>
 static int launch_conv3x3_wgmma(const void* x, const void* w, const Epilogue& epi, int B, int Cin,
                                 int Cout, int persistent, cudaStream_t stream) {
   using T = ConvTile<WGS, NT, STAGES>;
   CUtensorMap map_x, map_w;
-  const cuuint64_t row = (cuuint64_t)Cin * 2;
+  const cuuint64_t row = (cuuint64_t)Cin * K::kElem;
   const cuuint64_t dims_x[4] = {(cuuint64_t)Cin, (cuuint64_t)B, 9, 9};
   const cuuint64_t strides_x[3] = {row, row * B, row * B * 9};
-  const cuuint32_t box_x[4] = {64, T::kRows, 1, 1};
-  int e = wg::make_tensor_map(&map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims_x, strides_x,
-                              box_x);
+  const cuuint32_t box_x[4] = {K::kKStep, T::kRows, 1, 1};
+  int e = wg::make_tensor_map(&map_x, K::kType, 4, x, dims_x, strides_x, box_x);
   if (e != 0) return e;
-  const cuuint64_t dims_w[2] = {(cuuint64_t)Cout, (cuuint64_t)9 * Cin};
-  const cuuint64_t strides_w[1] = {(cuuint64_t)Cout * 2};
-  const cuuint32_t box_w[2] = {64, 64};
-  e = wg::make_tensor_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, dims_w, strides_w,
-                          box_w);
+  e = K::template weight_map<NT>(&map_w, w, Cin, Cout);
   if (e != 0) return e;
-  auto kernel = conv3x3_wgmma_kernel<WGS, NT, STAGES, MIN_CTAS, Epilogue>;
+  auto kernel = conv3x3_wgmma_kernel<K, WGS, NT, STAGES, MIN_CTAS, Epilogue>;
   cudaError_t ce = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         T::kSmem);
   if (ce != cudaSuccess) return (int)ce;
@@ -277,24 +360,25 @@ static int launch_conv3x3_wgmma(const void* x, const void* w, const Epilogue& ep
 }
 
 // The conv with `boards` (64 or 128) boards of one square per CTA and
-// `cout_tile` (128 or 256) output channels per CTA; `persistent` != 0 launches
-// one CTA per SM slot that walks the tiles. Cin must be a multiple of 64 and
-// Cout of cout_tile. Returns a cudaError_t.
-template <typename Epilogue>
+// `cout_tile` (128 or 256) output channels per CTA, on operands of type K
+// (ConvBf16 or ConvS8); `persistent` != 0 launches one CTA per SM slot that
+// walks the tiles. Cin must be a multiple of K's step and Cout of cout_tile.
+// Returns a cudaError_t.
+template <typename Epilogue, typename K = ConvBf16>
 static int conv3x3_wgmma(const void* x, const void* w, const Epilogue& epi, int B, int Cin,
                          int Cout, int boards, int cout_tile, int persistent,
                          cudaStream_t s) {
-  if (B < 1 || Cin < 64 || Cin % 64 != 0 || (cout_tile != 128 && cout_tile != 256) ||
-      Cout < cout_tile || Cout % cout_tile != 0)
+  if (B < 1 || Cin < K::kKStep || Cin % K::kKStep != 0 ||
+      (cout_tile != 128 && cout_tile != 256) || Cout < cout_tile || Cout % cout_tile != 0)
     return (int)cudaErrorInvalidValue;
   if (boards == 128 && cout_tile == 256)
-    return launch_conv3x3_wgmma<2, 256, 4, 1>(x, w, epi, B, Cin, Cout, persistent, s);
+    return launch_conv3x3_wgmma<K, 2, 256, 4, 1>(x, w, epi, B, Cin, Cout, persistent, s);
   if (boards == 64 && cout_tile == 256)
-    return launch_conv3x3_wgmma<1, 256, 5, 1>(x, w, epi, B, Cin, Cout, persistent, s);
+    return launch_conv3x3_wgmma<K, 1, 256, 5, 1>(x, w, epi, B, Cin, Cout, persistent, s);
   if (boards == 128 && cout_tile == 128)
-    return launch_conv3x3_wgmma<2, 128, 6, 1>(x, w, epi, B, Cin, Cout, persistent, s);
+    return launch_conv3x3_wgmma<K, 2, 128, 6, 1>(x, w, epi, B, Cin, Cout, persistent, s);
   if (boards == 64 && cout_tile == 128)
-    return launch_conv3x3_wgmma<1, 128, 4, 2>(x, w, epi, B, Cin, Cout, persistent, s);
+    return launch_conv3x3_wgmma<K, 1, 128, 4, 2>(x, w, epi, B, Cin, Cout, persistent, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -137,7 +137,8 @@ int keisei_fused_gpbias_block(const void* x, const void* w1, const void* w2, con
     return (int)cudaErrorInvalidValue;
   const float* bnf = static_cast<const float*>(bn);
   float* g2f = static_cast<float*>(g2);
-  int e = launch_gp_pool<false>(x, gp1w, gp1b, gp2w, gp2b, g2f, B, C, gpc, pool_boards, s);
+  const PoolBf16 pool_x{static_cast<const __nv_bfloat16*>(x)};
+  int e = launch_gp_pool<false>(pool_x, gp1w, gp1b, gp2w, gp2b, g2f, B, C, gpc, pool_boards, s);
   if (e != 0) return e;
   e = launch_block_conv<kEpiH>(x, w1, bnf, bnf + C, g2f, h, B, C, boards, s);
   if (e != 0) return e;

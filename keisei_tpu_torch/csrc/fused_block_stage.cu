@@ -35,17 +35,18 @@ int keisei_fused_block_stage(const void* x, const void* w1, const void* w2, cons
     return (int)cudaErrorInvalidValue;
   const float* bnf = static_cast<const float*>(bn);
   float* g2f = static_cast<float*>(g2);
+  const PoolBf16 pool_x{static_cast<const __nv_bfloat16*>(x)};
   switch (stage) {
     case 0:
       return launch_block_conv<kEpiRaw>(x, w1, nullptr, nullptr, nullptr, out, B, C, boards, s);
     case 1:
       return launch_block_conv<kEpiBnRelu>(x, w1, bnf, bnf + C, nullptr, out, B, C, boards, s);
     case 2:
-      return launch_gp_pool<true>(x, gp1w, gp1b, gp2w, gp2b, static_cast<float*>(out), B, C, gpc,
-                                  pool_boards, s);
+      return launch_gp_pool<true>(pool_x, gp1w, gp1b, gp2w, gp2b, static_cast<float*>(out), B, C,
+                                  gpc, pool_boards, s);
     case 3:
     case 4: {
-      int e = launch_gp_pool<false>(x, gp1w, gp1b, gp2w, gp2b, g2f, B, C, gpc, pool_boards, s);
+      int e = launch_gp_pool<false>(pool_x, gp1w, gp1b, gp2w, gp2b, g2f, B, C, gpc, pool_boards, s);
       if (e != 0) return e;
       if (stage == 3)
         return launch_block_conv<kEpiGpBias>(x, w1, bnf, bnf + C, g2f, out, B, C, boards, s);

@@ -42,8 +42,8 @@ SIGNATURES = {
     "keisei_conv3x3_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "keisei_fused_gpbias_block": [_P] * 16 + [_I] * 6 + [_P],
     "keisei_fused_block_stage": [_P] * 11 + [_I] * 6 + [_P],
-    "keisei_quantized_gpbias_block": [_P] * 17 + [_I] * 5 + [_P],
-    "keisei_qblock_part": [_I] + [_P] * 6 + [_I] * 3 + [_P],
+    "keisei_quantized_gpbias_block": [_P] * 19 + [_I] * 7 + [_P],
+    "keisei_qblock_part": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "keisei_mma_rate": [_P, _P, _P, _I, _I, _I, _P],
     "keisei_tiled_mm": [_P, _P, _P, _I, _I, _I, _I, _P],
     "keisei_dot_chain": [_P, _P, _P, _I, _I, _I, _P],

@@ -22,21 +22,31 @@ own layout: activations (9, 9, B, C) int8 with scales (B / batch_tile,)
 f32, conv weights (3, 3, Cout, Cin) int8 (K-contiguous per output channel,
 what the s8 tensor-core MMA reads without a transpose) with scales (Cout,).
 
-On a CUDA tensor `quantized_gpbias_block` launches the hand-written sm_90a
-kernels (csrc/qblock.cu) or raises; only a CPU tensor takes the plain
-version `quantized_gpbias_block_reference`. `quantized_gpbias_block.launches`
-counts launches of the block (three kernels each, see csrc/qblock.cu).
+On a CUDA tensor `quantized_gpbias_block` makes one call into csrc/qblock.cu,
+which enqueues six hand-written sm_90a kernels (the pool and gp FCs; conv1
+on s8 wgmma fed by TMA, whose CTA computes 64 or 128 boards at one square;
+the requantize of h; conv2 on the same mainloop; SE and residual; the
+quantize of y), split at the board-wide and the tile-wide reductions, or
+raises; the pool bias, h, hq, conv2's sums, y and the tile maxima cross
+device memory in scratch the wrapper allocates as `qblock_plan` sizes it.
+Only a CPU tensor takes the plain version `quantized_gpbias_block_reference`.
+`quantized_gpbias_block.launches` counts calls that launched the kernels.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv3x3 import ConvRoute, wgmma_tile
+from .fused_block import POOL_4_FROM
 
 __all__ = ["quantized_gpbias_block", "quantized_gpbias_block_reference", "pack_quantized",
-           "unpack_dequantized", "quantize_conv_weights", "int8_batch_tile"]
+           "unpack_dequantized", "quantize_conv_weights", "int8_batch_tile", "qblock_plan",
+           "QBlockPlan"]
 
 SUPPORTED_C = (128, 256)
 
@@ -96,6 +106,44 @@ def unpack_dequantized(xq: torch.Tensor, sx: torch.Tensor, batch_tile: int) -> t
     return xq.float() * sx.repeat_interleave(batch_tile)[None, None, :, None]
 
 
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+class QBlockPlan(NamedTuple):
+    """What the wrapper decides of one block call at (n boards, c channels,
+    tiles of bt boards); grids and shared memory are the C launcher's
+    (csrc/qblock.cu)."""
+    tile: ConvRoute       # the two s8 convs' wgmma tile (boards x c, persistent)
+    pool_boards: int      # boards per CTA of the pool kernel, 1 or 4
+    g2_bytes: int         # scratch: the pool bias (n, c) f32
+    act_bytes: int        # scratch: h, then conv2's sums, then y, (9, 9, n, c) f32
+    hq_bytes: int         # scratch: hq (9, 9, n, c) int8
+    stats_bytes: int      # scratch: the h and y maxima and sh, 3 x n / bt of 32 bits
+
+    @property
+    def scratch_bytes(self) -> int:
+        return self.g2_bytes + self.act_bytes + self.hq_bytes + self.stats_bytes
+
+
+def qblock_plan(n: int, c: int, bt: int = 32) -> QBlockPlan:
+    """The launch of quantized_gpbias_block for xq (9, 9, n, c) with tiles
+    of bt boards: a function of the shapes alone. The convs take the tile the
+    bf16 conv takes (`wgmma_tile`: all of c, 64 boards up to n = 512, 128
+    beyond), the pool kernel the bf16 block's boards per CTA (4 from
+    POOL_4_FROM). bt must divide n and be a multiple of 16: a warp of the
+    conv epilogue sends the max of its 16 boards to one tile's word. Every
+    scratch part is a multiple of 16 bytes, so the parts laid end to end stay
+    16-byte aligned."""
+    if c not in SUPPORTED_C:
+        raise ValueError(f"CUDA int8 block takes C in {SUPPORTED_C}, got {c}")
+    _check_tile(n, bt)
+    if bt % 16:
+        raise ValueError(f"CUDA int8 block takes batch_tile a multiple of 16, got {bt}")
+    return QBlockPlan(wgmma_tile(n, c), 4 if n >= POOL_4_FROM else 1, n * c * 4,
+                      81 * n * c * 4, 81 * n * c, _align16(3 * (n // bt) * 4))
+
+
 def _check(xq, sx, wq1, wq2, bn, gp1_w, gp1_b, gp2_w, gp2_b, se1_w, se1_b, se2_w, se2_b,
            batch_tile: int) -> None:
     if xq.dim() != 4 or tuple(xq.shape[:2]) != (9, 9):
@@ -147,7 +195,8 @@ def quantized_gpbias_block_reference(xq, sx, wq1, wq2, bn_affine, gp1_w, gp1_b, 
                                      se1_w, se1_b, se2_w, se2_b, *, batch_tile: int = 32
                                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version with the TPU kernel's arithmetic: exact integer convs,
-    FC inputs rounded to bf16, f32 elsewhere, tile-wide scales."""
+    FC inputs rounded to bf16 (their sums exact, rounded to f32 once), f32
+    elsewhere, tile-wide scales."""
     args = (xq, sx, wq1, wq2, bn_affine, gp1_w, gp1_b, gp2_w, gp2_b, se1_w, se1_b, se2_w, se2_b)
     _check(*args, batch_tile)
     n, ch = xq.shape[2], xq.shape[3]
@@ -155,14 +204,26 @@ def quantized_gpbias_block_reference(xq, sx, wq1, wq2, bn_affine, gp1_w, gp1_b, 
     bf16 = torch.bfloat16
 
     def fc(v, w, b):
-        return v.to(bf16).float() @ w.float() + b
+        # bf16 inputs and weights: exact products, summed in f64 and rounded
+        # to f32 once, as the kernels sum them (csrc/fused_block_common.cuh)
+        return (v.to(bf16).double() @ w.double()).float() + b
+
+    def square_mean(v):
+        # summed in square order and divided by a tensor (as in _tile_scales),
+        # as the kernels take a channel's 81 values: these means are FC inputs
+        # rounded to bf16, and one rounding flipped by another summation order
+        # moves a whole board's SE, and with it, at times, its tile's scale
+        s = v[0]
+        for m in range(1, 81):
+            s = s + v[m]
+        return s / torch.full_like(s, 81.0)
 
     m1, b1, m2, b2 = bn_affine
     sx_b = sx.repeat_interleave(bt)                                  # (B,)
     xf = xq.reshape(81, n, ch).float() * sx_b[None, :, None]
-    mean = xf.sum(dim=0) / 81.0
+    mean = square_mean(xf)
     amax = xf.amax(dim=0).clamp_min(0.0)       # the TPU's max includes the zero border
-    var = ((xf - mean[None]) ** 2).sum(dim=0) / 81.0
+    var = square_mean((xf - mean[None]) ** 2)
     pool = torch.cat([mean, amax, torch.sqrt(var + 1e-10)], dim=1)
     g2 = fc(torch.relu(fc(pool, gp1_w, gp1_b)), gp2_w, gp2_b)
 
@@ -172,7 +233,7 @@ def quantized_gpbias_block_reference(xq, sx, wq1, wq2, bn_affine, gp1_w, gp1_b, 
 
     z = _qconv_taps(hq.reshape(9, 9, n, ch), wq2)
     z = z * (sh.repeat_interleave(bt)[:, None] * m2)[None] + b2
-    se = fc(torch.relu(fc(z.sum(dim=0) / 81.0, se1_w, se1_b)), se2_w, se2_b)
+    se = fc(torch.relu(fc(square_mean(z), se1_w, se1_b)), se2_w, se2_b)
     y = torch.relu(z * torch.sigmoid(se[:, :ch])[None] + se[:, ch:][None] + xf)
     yq, sy = _quantize_tiles(y, bt)
     return yq.reshape(9, 9, n, ch), sy
@@ -195,20 +256,20 @@ def quantized_gpbias_block(xq, sx, wq1, wq2, bn_affine, gp1_w, gp1_b, gp2_w, gp2
     if xq.device.type != "cuda":
         raise ValueError(f"unsupported device {xq.device}")
     n, ch = xq.shape[2], xq.shape[3]
-    if ch not in SUPPORTED_C:
-        raise ValueError(f"CUDA int8 block takes C in {SUPPORTED_C}, got {ch}")
     if not all(t.is_contiguous() for t in args):
         raise ValueError("all int8 block operands must be contiguous")
+    plan = qblock_plan(n, ch, batch_tile)
     lib = _build.load_library()
     yq = torch.empty_like(xq)
     sy = torch.empty_like(sx)
-    # f32 scratch between the three kernels: h, then y, and per-board maxima
-    act = torch.empty((9, 9, n, ch), dtype=torch.float32, device=xq.device)
-    board_max = torch.empty((2, n), dtype=torch.float32, device=xq.device)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=xq.device)
+    g2, act, hq, stats = scratch.split((plan.g2_bytes, plan.act_bytes, plan.hq_bytes,
+                                        plan.stats_bytes))
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = lib.keisei_quantized_gpbias_block(
-        *[t.data_ptr() for t in args], yq.data_ptr(), sy.data_ptr(), act.data_ptr(),
-        board_max.data_ptr(), n, ch, gp1_w.shape[1], se1_w.shape[1], batch_tile, stream)
+        *[t.data_ptr() for t in args], yq.data_ptr(), sy.data_ptr(), g2.data_ptr(),
+        act.data_ptr(), hq.data_ptr(), stats.data_ptr(), n, ch, gp1_w.shape[1], se1_w.shape[1],
+        batch_tile, plan.tile.boards, plan.pool_boards, stream)
     _build.check(lib, err, "quantized_gpbias_block launch")
     quantized_gpbias_block.launches += 1
     return yq, sy

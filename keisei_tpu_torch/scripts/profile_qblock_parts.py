@@ -4,19 +4,21 @@ stripped, and a dependent-dot chain whose weight streams from L2
 make_stripped and make_dotrate it replaces).
 
 `qblock_part(variant, xq, wq1, wq2, batch_tile=...)` runs one stripped
-variant (csrc/qblock_parts.cu, built from qblock.cu's own pieces):
+variant (csrc/qblock_parts.cu, composed from the block's own kernels: the
+s8 wgmma conv, the tile maxima, the requantize pass):
 
-    convs     int8 conv1, h = max(acc * 1e-4, 0), tile quantize, int8 conv2,
-              clip(acc, +-127): the GEMMs, the scalar work of a requantize
-              and qblock.cu's f32 round trip between its kernels
-    novpu     conv1, acc & 1, conv2, acc & 1: h stays in shared memory
-    vpuonly   convs with each GEMM replaced by its input
-    bf16gemm  novpu's structure on bf16 operands, x 1e-2 casts
+    convs     s8 conv1, h = max(acc * 1e-4, 0) and the tile max, the
+              requantize pass, s8 conv2, clip(acc, +-127): the GEMMs, the
+              scalar work of a requantize and the block's f32 round trip
+    novpu     conv1, acc & 1, conv2, acc & 1: the int8 h crosses device
+              memory (no CTA of the wgmma tiling holds a board)
+    vpuonly   convs' three passes with each GEMM replaced by its input
+    bf16gemm  novpu's structure on bf16 operands (the bf16 wgmma conv), x 1e-2
     gemmonly  both convs from x: (conv1(x) & 1, conv2(x) & 1)
 
 `gemm3d` is gemmonly's function under another Mosaic lowering on the TPU; it
 runs gemmonly here. `full` is the block itself (ops/qblock.py), each of its
-three kernels timed from a torch.profiler (CUPTI) trace of block calls. int8
+six kernels timed from a torch.profiler (CUPTI) trace of block calls. int8
 variants take weights as
 quantize_conv_weights lays them out, (3, 3, Cout, Cin); bf16gemm takes bf16
 (3, 3, Cin, Cout), as conv3x3_hwbc does.
@@ -35,42 +37,52 @@ or X <- bf16((X @ W) * 1e-3) in bf16, with w given as W^T ([n][k]), at the
 TPU script's (121*32, 768) @ (768, 768) (csrc/dot_chain.cu, W streamed from
 L2: 576 KB int8 does not fit in shared memory).
 
-On CPU tensors both run their plain versions. `.launches` count launches
-per variant (per type for dot_chain); `full` counts in
-quantized_gpbias_block.launches, one per block (three kernels).
+On CPU tensors both run their plain versions. `.launches` count calls per
+variant (per type for dot_chain); `full` counts in
+quantized_gpbias_block.launches, one per block (six kernels).
 
     python -m keisei_tpu_torch.scripts.profile_qblock_parts [B] [variants] [BT]
+    python -m keisei_tpu_torch.scripts.profile_qblock_parts trunk [B ...]
 
 B defaults to 1024, variants to full,convs,novpu,vpuonly,bf16gemm,gemmonly,
 dotrate,dotrate16 (comma-separated), BT to 32. Prints the card's name and
 power limit, then ms per call and T(FL)OP/s per variant (operations of the
 81 board squares; the TPU script counted the 121 of its padded layout).
+`trunk` times the block itself as the int8 forward calls it, over 40
+distinct weight sets (b40c256's trunk) at B = 64, 256, 1024 or the B given:
+ms per call from one CUDA graph of 40-call trunks, and each kernel's from a
+trace (copy this file into an older tree to time its block the same way).
 Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import math
+import re
 import sys
 from collections import Counter
 
 import torch
 
 from ..ops import _build
-from ..ops.conv3x3 import conv3x3_taps_f32
+from ..ops.conv3x3 import conv3x3_taps_f32, wgmma_tile
 from ..ops.qblock import (_qconv_taps, _qconv_taps_exact, _quantize_tiles, pack_quantized,
-                          quantize_conv_weights, quantized_gpbias_block)
+                          quantize_conv_weights, quantized_gpbias_block,
+                          quantized_gpbias_block_reference)
 from ..utils.timing import card, graph_ms, trace_kernel_us, traced_kernel_ms
 
 VARIANTS = ("convs", "novpu", "vpuonly", "bf16gemm", "gemmonly")
 ALIASES = {"gemm3d": "gemmonly"}
 SUPPORTED_C = (128, 256)
 B, CH, BT = 1024, 256, 32   # the TPU script's defaults: rollout batch, channels, tile
+BLOCKS = 40                  # b40c256's trunk: the weight sets of `block`
+TRUNK_BATCHES = (64, 256, 1024)
 DOT_M, DOT_K, DOT_CHAIN = 121 * 32, 768, 8    # the TPU script's M = 121 * BT, K = 3C
 DOT_ROWS = 64                                  # rows of X per CTA (csrc/dot_chain.cu)
-# the block's three kernels (csrc/qblock.cu), as the profiler names them
-FULL_KERNELS = (("conv1", "qblock_conv1_kernel"), ("conv2", "qblock_conv2_kernel"),
-                ("requant", "qblock_requant_kernel"))
+# the block's six kernels (csrc/qblock.cu), by a pattern of the name the profiler reports
+FULL_KERNELS = (("K0_pool", r"gp_pool_kernel"), ("K1_conv1", r"QConvH"),
+                ("Q1_requant_h", r"requant_kernel<\d+,0>"), ("K2_conv2", r"QConvSums"),
+                ("K3_se", r"qblock_se_kernel"), ("Q2_requant_y", r"requant_kernel<\d+,1>"))
 # outputs that are exact integers (parity bits of exact sums); convs and
 # vpuonly round through a tile quantization
 EXACT = ("novpu", "gemmonly", "dotrate")
@@ -138,21 +150,27 @@ def qblock_part(variant: str, xq, wq1, wq2, *, batch_tile: int = 32) -> torch.Te
     n, ch = xq.shape[2], xq.shape[3]
     if ch not in SUPPORTED_C:
         raise ValueError(f"CUDA qblock_part takes C in {SUPPORTED_C}, got {ch}")
+    if batch_tile % 16:
+        raise ValueError(f"CUDA qblock_part takes batch_tile a multiple of 16, got {batch_tile}")
     if not all(t.is_contiguous() for t in (xq, wq1, wq2)):
         raise ValueError("xq, wq1 and wq2 must be contiguous")
     lib = _build.load_library()
     out = torch.empty(((2,) if variant == "gemmonly" else ()) + tuple(xq.shape),
                       dtype=xq.dtype, device=xq.device)
-    act = board_max = None
-    if variant in ("convs", "vpuonly"):
-        act = torch.empty(xq.shape, dtype=torch.float32, device=xq.device)
-        board_max = torch.empty((n,), dtype=torch.float32, device=xq.device)
+
+    def scratch(needed: bool, dtype, shape=xq.shape):
+        return torch.empty(shape, dtype=dtype, device=xq.device) if needed else None
+
+    quantizes = variant in ("convs", "vpuonly")
+    act = scratch(quantizes or variant == "bf16gemm",
+                  torch.bfloat16 if variant == "bf16gemm" else torch.float32)
+    hq = scratch(quantizes or variant == "novpu", torch.int8)
+    words = scratch(quantizes, torch.int32, (n // batch_tile,))
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = lib.keisei_qblock_part(VARIANTS.index(variant), xq.data_ptr(), wq1.data_ptr(),
                                  wq2.data_ptr(), out.data_ptr(),
-                                 None if act is None else act.data_ptr(),
-                                 None if board_max is None else board_max.data_ptr(),
-                                 n, ch, batch_tile, stream)
+                                 *[None if t is None else t.data_ptr() for t in (act, hq, words)],
+                                 n, ch, batch_tile, wgmma_tile(n, ch).boards, stream)
     _build.check(lib, err, f"qblock_part({variant}) launch")
     qblock_part.launches[variant] += 1
     return out
@@ -256,17 +274,60 @@ def full_block_args(b: int, c: int, bt: int, device, seed: int = 0) -> tuple:
     return tuple(t.to(device).contiguous() for t in args)
 
 
-def full_kernel_ms(args: tuple, bt: int,
-                   iters: int = 20) -> tuple[dict[str, float], dict[str, int]]:
-    """ms per launch of each of the block's three kernels and their sum
-    under "total", each the mean over the last `iters` launches in a
-    torch.profiler (CUPTI) trace of block calls (`trace_kernel_us`,
-    `traced_kernel_ms`), and how many launches of each the trace holds.
-    Raises if it holds fewer than `iters` of a kernel."""
-    trace = trace_kernel_us(lambda: quantized_gpbias_block(*args, batch_tile=bt), iters)
-    traced = {name: traced_kernel_ms(trace, kernel, iters) for name, kernel in FULL_KERNELS}
+def int8_weights(w1, w2, bn, *fcs) -> tuple:
+    """A bf16 block's weights (profile_fused_forward.block_weights) as the
+    int8 forward's prepare quantizes them: (wq1, wq2, bn_affine, *fcs)."""
+    wq1, ws1 = quantize_conv_weights(w1)
+    wq2, ws2 = quantize_conv_weights(w2)
+    return (wq1, wq2, torch.stack([bn[0] * ws1, bn[1], bn[2] * ws2, bn[3]]).contiguous(), *fcs)
+
+
+def trunk(fn, xq, sx, blocks: list[tuple], bt: int = BT):
+    """xq, sx through one block call per weight set of `blocks`."""
+    for wts in blocks:
+        xq, sx = fn(xq, sx, *wts, batch_tile=bt)
+    return xq, sx
+
+
+def block_ms(xq, sx, blocks: list[tuple], bt: int = BT, iters: int = 5) -> float:
+    """ms per quantized_gpbias_block call: `iters` trunks over `blocks`
+    captured in one CUDA graph, divided by the calls."""
+    return graph_ms(lambda: trunk(quantized_gpbias_block, xq, sx, blocks, bt), iters,
+                    (quantized_gpbias_block,)) / len(blocks)
+
+
+def block_kernels_ms(xq, sx, blocks: list[tuple], bt: int = BT,
+                     iters: int = 3) -> tuple[dict[str, float], dict[str, int]]:
+    """ms per launch of each of the block's six kernels (FULL_KERNELS'
+    names) and their sum under "total", each the mean over the launches of
+    the last `iters` trunks over `blocks` in a torch.profiler (CUPTI) trace
+    (`trace_kernel_us`, `traced_kernel_ms`), and how many launches of each
+    the trace holds. Raises if it holds fewer of a kernel than `iters`
+    trunks launch."""
+    trace = trace_kernel_us(lambda: trunk(quantized_gpbias_block, xq, sx, blocks, bt), iters)
+    traced = {name: traced_kernel_ms(trace, pattern, iters, len(blocks))
+              for name, pattern in FULL_KERNELS}
     times = {name: ms for name, (ms, _) in traced.items()}
     return {**times, "total": sum(times.values())}, {name: n for name, (_, n) in traced.items()}
+
+
+def full_kernel_ms(args: tuple, bt: int,
+                   iters: int = 20) -> tuple[dict[str, float], dict[str, int]]:
+    """block_kernels_ms of the block on args (xq, sx, *weights): the mean
+    over its last `iters` calls."""
+    xq, sx, *wts = args
+    return block_kernels_ms(xq, sx, [tuple(wts)], bt, iters)
+
+
+def trunk_inputs(b: int, device, seed: int = 0, c: int = CH, gpc: int = 128, sec: int = 16):
+    """xq, sx of a relu(normal) input and `BLOCKS` int8 weight sets made
+    from b40c256's block weights (profile_fused_forward.block_weights, gp
+    128, SE 16), from `seed`: the int8 trunk at batch b."""
+    from .profile_fused_forward import block_weights
+    g = torch.Generator(device=device).manual_seed(seed)
+    blocks = [int8_weights(*block_weights(c, gpc, sec, g, device)) for _ in range(BLOCKS)]
+    x = torch.relu(torch.randn(9, 9, b, c, generator=g, device=device))
+    return (*pack_quantized(x, BT), blocks)
 
 
 def conv_ops(b: int, c: int) -> float:
@@ -278,7 +339,7 @@ def measure(device, b: int = B, bt: int = BT,
             names: tuple[str, ...] = ("full", *VARIANTS, "dotrate", "dotrate16"),
             iters: int = 20) -> dict:
     """ms per call of each named variant at (b, 256), replayed from a CUDA
-    graph (`full`: the sum of its three kernels' ms, which it adds): its
+    graph (`full`: the sum of its six kernels' ms, which it adds): its
     operations and rate; dotrate* the CTA count."""
     results = {}
     for name in names:
@@ -337,10 +398,39 @@ def compare_to_plain(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
     return res
 
 
+def trunk_measure(device, b: int) -> str:
+    """The block in b40c256's trunk at batch b: the first weight set against
+    the plain version (the card-test bound), ms per call from a CUDA graph of
+    40-call trunks, and each kernel's ms from a trace; a line to print. A
+    trace of another tree's block (timed beside this one) whose kernels
+    FULL_KERNELS does not name is reported per kernel name."""
+    xq, sx, blocks = trunk_inputs(b, device)
+    (yq, sy), (rq, rs) = (quantized_gpbias_block(xq, sx, *blocks[0], batch_tile=BT),
+                          quantized_gpbias_block_reference(xq, sx, *blocks[0], batch_tile=BT))
+    diff = (yq.int() - rq.int()).abs()
+    if not (int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.99
+            and float(((sy - rs).abs() / rs).max()) <= 1e-4):
+        raise AssertionError(f"int8 block B={b} disagrees with its plain version")
+    ms = block_ms(xq, sx, blocks)
+    trace = trace_kernel_us(lambda: trunk(quantized_gpbias_block, xq, sx, blocks), 3)
+    names = [n.replace(" ", "") for n in trace]
+    if all(any(re.search(p, n) for n in names) for _, p in FULL_KERNELS):
+        parts, _ = block_kernels_ms(xq, sx, blocks)
+    else:
+        parts = {n.split("(")[0][-60:]: sum(us) / len(us) / 1e3 for n, us in trace.items()}
+    return (f"quantized_gpbias_block B={b} C={CH} bt={BT} weight_sets={BLOCKS}: {ms:.4f} ms per "
+            "call (graph); trace: " + " ".join(f"{k}={v:.4f}" for k, v in parts.items()))
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("profile_qblock_parts: no CUDA device", file=sys.stderr)
         return 2
+    if len(argv) > 1 and argv[1] == "trunk":
+        print(card())
+        for b in (tuple(int(a) for a in argv[2:]) or TRUNK_BATCHES):
+            print(trunk_measure(torch.device("cuda"), b), flush=True)
+        return 0
     b = int(argv[1]) if len(argv) > 1 else B
     names = tuple(argv[2].split(",")) if len(argv) > 2 else ("full", *VARIANTS, "dotrate",
                                                              "dotrate16")

@@ -8,10 +8,13 @@ Without a card every test skips (the decision is made inside the fixture).
 Tolerance: rtol = atol = 0.05 in bf16, as TestPallasConv holds the TPU
 kernel to an XLA conv; both sides accumulate in f32 and round to bf16 at the
 same points, so they differ only by summation order and one-ulp roundings.
-The int8 block: its convs are exact on both sides, so its outputs may differ
-only where an f32 sum taken in another order (pool, FCs, SE mean) moves a
-value across a rounding boundary: at most 1 level apart, >= 99% identical,
-scales within rtol 1e-4 (the same bound as the CPU test against JAX). The
+The int8 block (six kernels per call) is held over B in {32, 64, 96, 256,
+1024} x C in {128, 256}: its convs are exact on both sides, so its outputs
+may differ only where an f32 sum taken in another order (pool, FCs, SE
+mean) moves a value across a rounding boundary: at most 1 level apart,
+>= 99% identical, scales within rtol 1e-4 (the same bound as the CPU test
+against JAX). Its tile maxima do not depend on order, so a repeat gives the
+same bits, and a CUDA graph replay on new values the new block. The
 tensor-core probe computes in exact integers and must match bit for bit.
 
 The wgmma conv (Cin % 64 == 0) is held to the same bound over tails in B
@@ -294,15 +297,42 @@ def assert_int8_close(got, ref):
     torch.testing.assert_close(sy, rs, rtol=1e-4, atol=0)
 
 
-@pytest.mark.parametrize("b,c,gpc,sec", [(64, 256, 128, 16), (256, 256, 128, 16),
-                                         (32, 128, 64, 8)])
-def test_qblock_matches_plain(dev, b, c, gpc, sec):
-    args = qblock_args(b, c, gpc, sec, dev)
+QBLOCK_GRID = [(b, c) for b in (32, 64, 96, 256, 1024) for c in (128, 256)]
+
+
+@pytest.mark.parametrize("b,c", QBLOCK_GRID)
+def test_qblock_matches_plain(dev, b, c):
+    """B=96 ends in a partial 64-board tile of the convs; B=1024 takes the
+    128-board tiles and the pool kernel's 4 boards per CTA."""
+    args = qblock_args(b, c, c // 2, c // 16, dev)
     before = quantized_gpbias_block.launches
     got = quantized_gpbias_block(*args, batch_tile=32)
     torch.cuda.synchronize()
     assert quantized_gpbias_block.launches == before + 1
     assert_int8_close(got, quantized_gpbias_block_reference(*args, batch_tile=32))
+
+
+def test_qblock_repeats_bits_and_replays_from_a_graph(dev):
+    """The tile maxima are atomicMax on f32 bits, which does not depend on
+    order: a repeat gives the same bits. Replayed from a CUDA graph after
+    xq's values changed in place, the block (its maxima zeroed inside the
+    replay) computes the new block."""
+    args = qblock_args(96, 256, 128, 16, dev, seed=7)
+    got, again = (quantized_gpbias_block(*args, batch_tile=32) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out = quantized_gpbias_block(*args, batch_tile=32)
+    new = qblock_args(96, 256, 128, 16, dev, seed=8)
+    args[0].copy_(new[0])
+    args[1].copy_(new[1])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert_int8_close(out, quantized_gpbias_block_reference(*args, batch_tile=32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert_int8_close(out, quantized_gpbias_block_reference(*args, batch_tile=32))
 
 
 def test_qblock_rejects_what_the_kernel_does_not_take(dev):
@@ -312,6 +342,9 @@ def test_qblock_rejects_what_the_kernel_does_not_take(dev):
     args = qblock_args(64, 128, 64, 8, dev)
     with pytest.raises(ValueError, match="not divisible"):
         quantized_gpbias_block(*args, batch_tile=48)
+    args = qblock_args(64, 128, 64, 8, dev, bt=8)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        quantized_gpbias_block(*args, batch_tile=8)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
@@ -366,7 +399,7 @@ def test_fused_block_stage_matches_plain(dev, stage, b, c):
 
 
 @pytest.mark.parametrize("variant", qparts.VARIANTS)
-@pytest.mark.parametrize("b,c", [(64, 256), (32, 128)])
+@pytest.mark.parametrize("b,c", [(64, 256), (32, 128), (96, 256)])
 def test_qblock_part_matches_plain(dev, variant, b, c):
     args = qparts.part_inputs(variant, b, c, dev, seed=b)
     before = qparts.qblock_part.launches[variant]
@@ -378,6 +411,8 @@ def test_qblock_part_matches_plain(dev, variant, b, c):
 
 def test_qblock_full_kernel_times_come_from_the_trace(dev):
     args = qparts.full_block_args(64, 256, 32, dev)
+    assert [name for name, _ in qparts.FULL_KERNELS] == ["K0_pool", "K1_conv1", "Q1_requant_h",
+                                                         "K2_conv2", "K3_se", "Q2_requant_y"]
     before = quantized_gpbias_block.launches
     times, traced = qparts.full_kernel_ms(args, 32, iters=3)
     # a warm-up call, then TRACE_LEAD + 3 traced ones; the means are over the last 3
