@@ -263,8 +263,9 @@ def probe_phase(dev) -> tuple[dict, dict]:
             size = 1 if key == "int8" else 2
             m, k = qparts.DOT_M, qparts.DOT_K
             print(f"phase7 dot_chain[{key}] M={m} K=N={k} chain={qparts.DOT_CHAIN} "
-                  f"ctas={r['ctas']} ms={r['ms']:.4f} rate={r['rate'] / 1e12:.1f}T "
-                  f"plain_ms={dot_plain[key]:.3f}")
+                  f"ctas={r['ctas']} w_l2_mb={r['w_l2_bytes'] / 1e6:.1f} ms={r['ms']:.4f} "
+                  f"rate={r['rate'] / 1e12:.1f}T plain_ms={dot_plain[key]:.3f} "
+                  f"cublas_chain_ms={r['cublas_ms']:.4f}")
             kernels[f"dot_chain[{key}]"] = dict(
                 max_abs_err=timed_errs[v]["max_abs_err"], ms=r["ms"], plain_ms=dot_plain[key],
                 library_ms=None,
@@ -306,6 +307,7 @@ def main() -> int:
                                               conv_route, pad_channels)
     from keisei_tpu_torch.ops.fused_block import (block_plan, fused_gpbias_block,
                                                   fused_gpbias_block_reference)
+    from keisei_tpu_torch.ops.gemm_chain import PLANS, hold_to_plain
     from keisei_tpu_torch.ops.qblock import (pack_quantized, qblock_plan, quantized_gpbias_block,
                                              quantized_gpbias_block_reference)
     from keisei_tpu_torch.scripts import profile_direct_conv as direct
@@ -330,6 +332,15 @@ def main() -> int:
     t0 = time.monotonic()
     _build.load_library()
     print(f"phase2 build_s={time.monotonic() - t0:.2f} dir={_build.build_dir()}")
+    # the chain kernels' SASS, one kernel a (type, K): wgmma fed by TMA, no
+    # mma.sync, no local memory
+    sass = _build.sass_counts(r"gemm_chain_kernel")
+    for name, counts in sass.items():
+        print(f"phase2 sass {name} {counts}")
+    if len(sass) != len(PLANS) or not all(
+            c["wgmma"] and c["tma_load"] and not c["mma_sync"] and not c["local"]
+            for c in sass.values()):
+        raise AssertionError(f"the chain kernels' SASS is not wgmma + TMA without spills: {sass}")
 
     # -- phase 3: kernels vs plain versions on the card ----------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -596,14 +607,20 @@ def main() -> int:
                                      f"{name} wrongly (Cin={cin})")
     print(f"phase3 conv3x3 wgmma one-hot boards {list(direct.ONE_HOT_SQUARES)} equal")
 
-    # the tensor-core rate probe against its plain version (exact)
-    probe.check(dev)
-    a, bmat = probe.probe_inputs(torch.int8, probe.M, dev, seed=1)
-    probe_plain_ms = cuda_ms(lambda: probe.mma_chain_reference(a, bmat, probe.CHAIN),
-                             iters=2, warmup=1)
-    del a, bmat
-    print(f"phase3 mma_chain int8+bf16 chain=3 rows={2 * probe.ROWS} exact=True "
-          f"plain_ms(M={probe.M}, chain={probe.CHAIN})={probe_plain_ms:.3f}")
+    # the tensor-core rate probe against its plain version (int8 exact, bf16 at
+    # TOL, 32 bf16 steps one by one: ops/gemm_chain.py:hold_to_plain): a
+    # partial tile at K = 512, then the inputs phase 6 times
+    probe_errs = probe.check(dev)
+    probe_plain_ms = {}
+    for dtype in probe.PEAK:
+        key = "bf16" if dtype == torch.bfloat16 else "int8"
+        a, bmat = probe.probe_inputs(dtype, probe.M, dev, seed=1)
+        probe_errs[f"{key}_timed"] = hold_to_plain(probe.mma_chain, a, bmat, probe.CHAIN)
+        probe_plain_ms[key] = cuda_ms(lambda: probe.mma_chain_reference(a, bmat, probe.CHAIN),
+                                      iters=2, warmup=1)
+        del a, bmat
+    print(f"phase3 mma_chain K={probe.K} chain=3 and M={probe.M} chain={probe.CHAIN} "
+          f"max_abs_err {probe_errs} plain_ms {probe_plain_ms}")
 
     # the rules engine on the card against the same engine on the CPU
     rng = torch.Generator().manual_seed(1)
@@ -783,20 +800,27 @@ def main() -> int:
             del trainer, fresh
 
     # -- phase 6: the tensor-core rate probe through its own entry ---------------
-    probe.mma_chain.launches = 0
+    probe.mma_chain.launches.clear()
     res = probe.measure(dev)
-    launches["mma_chain"] = probe.mma_chain.launches
-    r8, r16 = res["int8"], res["bf16"]
-    print(f"phase6 probe {card_line} M={probe.M} K={probe.K} "
-          f"chain={probe.CHAIN} int8_ms={r8['ms']:.4f} int8_TOPs={r8['rate'] / 1e12:.1f} "
-          f"({100 * r8['peak_share']:.1f}% of 1979) bf16_ms={r16['ms']:.4f} "
-          f"bf16_TFLOPs={r16['rate'] / 1e12:.1f} ({100 * r16['peak_share']:.1f}% of 989) "
-          f"launches={launches['mma_chain']}")
-    if launches["mma_chain"] < 1:
-        raise AssertionError("the probe did not launch its kernel")
-    kernels["mma_chain"] = dict(
-        max_abs_err=0.0, ms=r8["ms"], plain_ms=probe_plain_ms, library_ms=None,
-        **bound({"int8": r8["ops"]}, 2.0 * probe.M * probe.K + probe.K * probe.K))
+    for key, size in (("int8", 1), ("bf16", 2)):
+        r, name = res[key], f"mma_chain[{key}]"
+        launches[name] = probe.mma_chain.launches[key]
+        print(f"phase6 probe {card_line} {key} M={probe.M} K={probe.K} chain={probe.CHAIN} "
+              f"cluster={r['cluster'].cn}x{r['cluster'].rows} ctas={r['ctas']} "
+              f"max_clusters={r['max_clusters']} ms={r['ms']:.4f} "
+              f"rate={r['rate'] / 1e12:.1f}T ({100 * r['peak_share']:.1f}% of "
+              f"{probe.PEAK[torch.int8 if key == 'int8' else torch.bfloat16] / 1e12:.0f}) "
+              f"plain_ms={probe_plain_ms[key]:.3f} launches={launches[name]}")
+        if launches[name] < 1:
+            raise AssertionError(f"the probe did not launch its {key} kernel")
+        errs = probe_errs[f"{key}_timed"]
+        # the whole chain's error; a bf16 chain of 32 is held step by step,
+        # and step_err is its largest single step's (hold_to_plain)
+        kernels[name] = dict(
+            max_abs_err=errs["max_abs_err"], step_err=errs.get("step_err"), ms=r["ms"],
+            plain_ms=probe_plain_ms[key],
+            library_ms=None,
+            **bound({key: r["ops"]}, size * (2.0 * probe.M * probe.K + probe.K * probe.K)))
 
     # -- phase 7: the probes (PERF.md rows 5-8) through their entry points ------
     probe_kernels, probe_launches = probe_phase(dev)
@@ -810,7 +834,8 @@ def main() -> int:
                                "keisei_tpu/ops/fused_block.py:124"),
         "quantized_gpbias_block": ("keisei_tpu_torch/csrc/qblock.cu",
                                    "keisei_tpu/ops/qblock.py:173"),
-        "mma_chain": ("keisei_tpu_torch/csrc/mma_rate.cu", "scripts/profile_int8_mxu.py:71"),
+        **{f"mma_chain[{key}]": ("keisei_tpu_torch/csrc/chain_wgmma.cu",
+                                  "scripts/profile_int8_mxu.py:71") for key in ("int8", "bf16")},
     }
     csrc = "keisei_tpu_torch/csrc/"
     sources["conv3x3_hwbc[256]"] = (csrc + "conv3x3_wgmma.cu", "keisei_tpu/ops/conv3x3.py:69")
@@ -825,7 +850,7 @@ def main() -> int:
             "tiled_mm": (csrc + "tiled_mm.cu", "scripts/profile_conv_alternatives.py:188"),
             "qblock_part": (csrc + ("qblock.cu" if name == "qblock_part[full]"
                                     else "qblock_parts.cu"), "scripts/profile_qblock_parts.py:140"),
-            "dot_chain": (csrc + "dot_chain.cu", "scripts/profile_qblock_parts.py:217"),
+            "dot_chain": (csrc + "chain_wgmma.cu", "scripts/profile_qblock_parts.py:217"),
         }[family]
     summary = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **kernels[name]}

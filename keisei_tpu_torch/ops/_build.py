@@ -44,9 +44,9 @@ SIGNATURES = {
     "keisei_fused_block_stage": [_P] * 11 + [_I] * 6 + [_P],
     "keisei_quantized_gpbias_block": [_P] * 19 + [_I] * 7 + [_P],
     "keisei_qblock_part": [_I] + [_P] * 7 + [_I] * 4 + [_P],
-    "keisei_mma_rate": [_P, _P, _P, _I, _I, _I, _P],
     "keisei_tiled_mm": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "keisei_dot_chain": [_P, _P, _P, _I, _I, _I, _P],
+    "keisei_gemm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "keisei_gemm_chain_clusters": [_I, _I, _P],
 }
 
 
@@ -121,6 +121,37 @@ def load_library() -> ctypes.CDLL:
     lib.keisei_cuda_error_string.argtypes = [ctypes.c_int]
     lib.keisei_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# SASS instruction classes: warpgroup MMAs, mma.sync, TMA loads, local memory (spills)
+SASS_CLASSES = {"wgmma": r"\b[HI]GMMA\.", "mma_sync": r"\b[HI]MMA\.", "tma_load": r"\bUTMALDG\b",
+                "local": r"\b(STL|LDL)\b"}
+
+
+def sass_counts(kernel_pattern: str) -> dict[str, dict[str, int]]:
+    """Per kernel of the built library whose (mangled) name matches
+    `kernel_pattern`: how many instructions of each SASS_CLASSES class its
+    SASS holds (`cuobjdump -sass`). Raises if cuobjdump is missing."""
+    import re
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found (PATH or /usr/local/cuda/bin)")
+    load_library()
+    sass = subprocess.run([tool, "-sass", str(build_dir() / LIB_NAME)], check=True,
+                          capture_output=True, text=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            if re.search(kernel_pattern, name):
+                counts[name] = {k: 0 for k in SASS_CLASSES}
+            continue
+        if name in counts:
+            for k, pattern in SASS_CLASSES.items():
+                counts[name][k] += bool(re.search(pattern, line))
+    return counts
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -34,8 +34,12 @@ are the same function on both.
 
 `dot_chain(x, w, chain)` is make_dotrate's function, X <- (X @ W) & 1 in int8
 or X <- bf16((X @ W) * 1e-3) in bf16, with w given as W^T ([n][k]), at the
-TPU script's (121*32, 768) @ (768, 768) (csrc/dot_chain.cu, W streamed from
-L2: 576 KB int8 does not fit in shared memory).
+TPU script's (121*32, 768) @ (768, 768), on csrc/chain_wgmma.cu
+(ops/gemm_chain.py): W (576 KB int8, 1.15 MB bf16) does not fit in one SM's
+shared memory, so clusters of 4 CTAs split its output columns and hand each
+other their columns of X after every product (int8 through distributed
+shared memory, bf16 through L2); each CTA keeps its int8 W slice resident
+and streams its bf16 one from L2 every step.
 
 On CPU tensors both run their plain versions. `.launches` count calls per
 variant (per type for dot_chain); `full` counts in
@@ -47,7 +51,11 @@ quantized_gpbias_block.launches, one per block (six kernels).
 B defaults to 1024, variants to full,convs,novpu,vpuonly,bf16gemm,gemmonly,
 dotrate,dotrate16 (comma-separated), BT to 32. Prints the card's name and
 power limit, then ms per call and T(FL)OP/s per variant (operations of the
-81 board squares; the TPU script counted the 121 of its padded layout).
+81 board squares; the TPU script counted the 121 of its padded layout); the
+dot chains also their CTAs, the bytes of W a launch reads from L2, and, as
+context the port never calls, the same chain as 8 cuBLAS products
+(`torch._int_mm` / `torch.matmul`) with their elementwise epilogues,
+replayed from a CUDA graph.
 `trunk` times the block itself as the int8 forward calls it, over 40
 distinct weight sets (b40c256's trunk) at B = 64, 256, 1024 or the B given:
 ms per call from one CUDA graph of 40-call trunks, and each kernel's from a
@@ -66,6 +74,7 @@ import torch
 
 from ..ops import _build
 from ..ops.conv3x3 import conv3x3_taps_f32, wgmma_tile
+from ..ops.gemm_chain import ctas, gemm_chain, gemm_chain_reference, type_key, w_l2_bytes
 from ..ops.qblock import (_qconv_taps, _qconv_taps_exact, _quantize_tiles, pack_quantized,
                           quantize_conv_weights, quantized_gpbias_block,
                           quantized_gpbias_block_reference)
@@ -78,7 +87,6 @@ B, CH, BT = 1024, 256, 32   # the TPU script's defaults: rollout batch, channels
 BLOCKS = 40                  # b40c256's trunk: the weight sets of `block`
 TRUNK_BATCHES = (64, 256, 1024)
 DOT_M, DOT_K, DOT_CHAIN = 121 * 32, 768, 8    # the TPU script's M = 121 * BT, K = 3C
-DOT_ROWS = 64                                  # rows of X per CTA (csrc/dot_chain.cu)
 # the block's six kernels (csrc/qblock.cu), by a pattern of the name the profiler reports
 FULL_KERNELS = (("K0_pool", r"gp_pool_kernel"), ("K1_conv1", r"QConvH"),
                 ("Q1_requant_h", r"requant_kernel<\d+,0>"), ("K2_conv2", r"QConvSums"),
@@ -195,15 +203,7 @@ def dot_chain_reference(x, w, chain: int) -> torch.Tensor:
     """Plain version: int8 X <- (X @ w^T) & 1 in exact f64; bf16 X <-
     bf16(f32(X @ w^T) * 1e-3)."""
     _check_dot(x, w, chain)
-    if x.dtype == torch.int8:
-        xd, wd = x.double(), w.double()
-        for _ in range(chain):
-            xd = torch.bitwise_and((xd @ wd.t()).long(), 1).double()
-        return xd.to(torch.int8)
-    wf = w.float()
-    for _ in range(chain):
-        x = ((x.float() @ wf.t()) * 1e-3).to(torch.bfloat16)
-    return x
+    return gemm_chain_reference(x, w, chain)
 
 
 def dot_chain(x, w, chain: int) -> torch.Tensor:
@@ -211,24 +211,28 @@ def dot_chain(x, w, chain: int) -> torch.Tensor:
     X_chain of X_0 = x, X_{i+1} = (X_i @ w^T) & 1 (int8) or
     bf16((X_i @ w^T) * 1e-3) (bf16)."""
     _check_dot(x, w, chain)
-    if x.device.type == "cpu":
-        return dot_chain_reference(x, w, chain)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("x and w must be contiguous")
-    lib = _build.load_library()
-    out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    bf16 = x.dtype == torch.bfloat16
-    err = lib.keisei_dot_chain(x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], chain,
-                               int(bf16), stream)
-    _build.check(lib, err, "dot_chain launch")
-    dot_chain.launches["bf16" if bf16 else "int8"] += 1
+    out = gemm_chain(x, w, chain)
+    if x.device.type == "cuda":
+        dot_chain.launches[type_key(x.dtype)] += 1
     return out
 
 
 dot_chain.launches = Counter()
+
+
+def cublas_chain(x, w, chain: int) -> torch.Tensor:
+    """The same chain as `chain` cuBLAS products with their epilogues as
+    separate elementwise kernels: `torch._int_mm` and & 1 in int8;
+    `torch.matmul` (bf16 out: its f32 sums rounded once more than the
+    kernel's) then * 1e-3 in bf16. Context for the kernel's time: the rate
+    cuBLAS reaches at this shape. The port never calls it."""
+    wt = w.t()
+    for _ in range(chain):
+        if x.dtype == torch.int8:
+            x = torch.bitwise_and(torch._int_mm(x, wt), 1).to(torch.int8)
+        else:
+            x = (torch.matmul(x, wt).float() * 1e-3).to(torch.bfloat16)
+    return x
 
 
 def part_inputs(variant: str, b: int, c: int, device, seed: int = 0):
@@ -340,7 +344,8 @@ def measure(device, b: int = B, bt: int = BT,
             iters: int = 20) -> dict:
     """ms per call of each named variant at (b, 256), replayed from a CUDA
     graph (`full`: the sum of its six kernels' ms, which it adds): its
-    operations and rate; dotrate* the CTA count."""
+    operations and rate; dotrate* the CTA count, the W bytes a launch reads
+    from L2 and the cuBLAS chain's ms (cublas_chain, from a graph)."""
     results = {}
     for name in names:
         if name in ("dotrate", "dotrate16"):
@@ -348,7 +353,9 @@ def measure(device, b: int = B, bt: int = BT,
             x, w = dot_inputs(dtype, DOT_M, device, seed=1)
             ms = graph_ms(lambda: dot_chain(x, w, DOT_CHAIN), iters, (dot_chain.launches,))
             ops = 2.0 * DOT_M * DOT_K * DOT_K * DOT_CHAIN
-            results[name] = {"ms": ms, "ops": ops, "ctas": -(-DOT_M // DOT_ROWS)}
+            results[name] = {"ms": ms, "ops": ops, "ctas": ctas(DOT_M, dtype, DOT_K),
+                             "w_l2_bytes": w_l2_bytes(DOT_M, dtype, DOT_K, DOT_CHAIN),
+                             "cublas_ms": graph_ms(lambda: cublas_chain(x, w, DOT_CHAIN), iters)}
         elif name == "full":
             parts, traced = full_kernel_ms(full_block_args(b, CH, bt, device), bt, iters)
             results[name] = {"ms": parts["total"], "ops": 2 * conv_ops(b, CH), "kernels": parts,
@@ -441,7 +448,9 @@ def main(argv: list[str]) -> int:
     for name, r in measure(dev, b, bt, names).items():
         line = f"{name:9s}: {r['ms']:8.4f} ms  ({r['rate'] / 1e12:6.1f} T(FL)OP/s"
         if "ctas" in r:
-            line += f", M={DOT_M} chain={DOT_CHAIN}, {r['ctas']} CTAs on 132 SMs)"
+            line += (f", M={DOT_M} chain={DOT_CHAIN}, {r['ctas']} CTAs on 132 SMs, "
+                     f"W from L2 {r['w_l2_bytes'] / 1e6:.1f} MB; cuBLAS chain "
+                     f"{r['cublas_ms']:.4f} ms)")
         else:
             line += f", B={b} C={CH} bt={bt})"
         if "kernels" in r:

@@ -15,7 +15,14 @@ mean) moves a value across a rounding boundary: at most 1 level apart,
 >= 99% identical, scales within rtol 1e-4 (the same bound as the CPU test
 against JAX). Its tile maxima do not depend on order, so a repeat gives the
 same bits, and a CUDA graph replay on new values the new block. The
-tensor-core probe computes in exact integers and must match bit for bit.
+tensor-core probe (the gemm chain of csrc/chain_wgmma.cu, also the dot
+chain's kernel) is exact in int8 and at the bf16 bound in bf16, at K = 512
+and 768, chains of 1, 2, 8 and 32, an M that ends in a partial tile and one
+of a single cluster; a bf16 chain longer than 8 is held step by step
+(ops/gemm_chain.py:hold_to_plain: over 32 steps of a map that keeps |X| of
+order one, two summation orders drift past the bound in a few elements
+while each step stays within it). It sums in a fixed order, so a repeat
+and a CUDA-graph replay give equal bits.
 
 The wgmma conv (Cin % 64 == 0) is held to the same bound over tails in B
 and every K depth, to max |err| / max |ref| < 0.02 as the probe script holds
@@ -61,7 +68,8 @@ from keisei_tpu_torch.scripts import profile_qblock_parts as qparts
 from keisei_tpu_torch.scripts.debug_fused_block import EXACT_STAGES, stage_inputs
 from keisei_tpu_torch.scripts.profile_conv_alternatives import (mm_inputs, tiled_mm,
                                                                 tiled_mm_reference)
-from keisei_tpu_torch.scripts.profile_int8_mma import mma_chain, mma_chain_reference, probe_inputs
+from keisei_tpu_torch.ops.gemm_chain import chain_plan, hold_to_plain
+from keisei_tpu_torch.scripts.profile_int8_mma import mma_chain, probe_inputs
 from keisei_tpu_torch.utils.timing import TRACE_LEAD, graph_ms
 
 pytestmark = pytest.mark.cuda
@@ -350,11 +358,80 @@ def test_qblock_rejects_what_the_kernel_does_not_take(dev):
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 def test_mma_probe_matches_plain(dev, dtype):
     a, b = probe_inputs(dtype, 256, dev)
-    before = mma_chain.launches
+    key = "int8" if dtype == torch.int8 else "bf16"
+    before = mma_chain.launches[key]
     got = mma_chain(a, b, 5)
     torch.cuda.synchronize()
-    assert mma_chain.launches == before + 1
-    assert torch.equal(got, mma_chain_reference(a, b, 5))
+    assert mma_chain.launches[key] == before + 1
+    hold_to_plain(lambda *args: got, a, b, 5)
+
+
+@pytest.mark.parametrize("chain", [1, 2, 8, 32])
+@pytest.mark.parametrize("m", [3872, "cluster"])
+@pytest.mark.parametrize("k", [512, 768])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_gemm_chain_matches_plain(dev, dtype, k, m, chain):
+    """Both probes' kernel at row 4's K and row 8's, over M = 3872 (a partial
+    last tile) and the rows of a single cluster; a bf16 chain longer than 8
+    step by step (hold_to_plain)."""
+    rows = chain_plan(dtype, k).rows if m == "cluster" else m
+    a, b = probe_inputs(dtype, rows, dev, seed=k + chain, k=k)
+    hold_to_plain(mma_chain, a, b, chain)
+
+
+@pytest.mark.parametrize("k", [512, 768])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_gemm_chain_repeats_and_replays(dev, dtype, k):
+    """Equal bits on a repeat and on a CUDA-graph replay on new values; one
+    launch counted per call, the replayed ones by graph_ms."""
+    a, b = probe_inputs(dtype, 1000, dev, k=k)
+    key = "int8" if dtype == torch.int8 else "bf16"
+    before = mma_chain.launches[key]
+    first = mma_chain(a, b, 8)
+    assert mma_chain.launches[key] == before + 1
+    assert torch.equal(first, mma_chain(a, b, 8))
+    assert mma_chain.launches[key] == before + 2
+    static_a, static_b = a.clone(), b.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mma_chain(static_a, static_b, 8)
+    a2, b2 = probe_inputs(dtype, 1000, dev, seed=7, k=k)
+    static_a.copy_(a2)
+    static_b.copy_(b2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, mma_chain(a2, b2, 8))
+    hold_to_plain(lambda *args: out, a2, b2, 8)
+    before = mma_chain.launches[key]
+    graph_ms(lambda: mma_chain(a, b, 2), iters=3, counters=(mma_chain.launches,))
+    assert mma_chain.launches[key] == before + 1 + 2 * 3
+
+
+@pytest.mark.parametrize("k", [512, 768])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_gemm_chain_prefix_is_the_shorter_chain(dev, dtype, k):
+    """A chain of n passes through the chain of n - 1's bits: one launch of
+    a step from mma_chain(a, b, n - 1) gives mma_chain(a, b, n) exactly (the
+    premise of hold_to_plain's step-by-step bound), over a partial last
+    tile."""
+    a, b = probe_inputs(dtype, 3872, dev, seed=k, k=k)
+    for n in (2, 5, 32):
+        assert torch.equal(mma_chain(mma_chain(a, b, n - 1), b, 1), mma_chain(a, b, n)), n
+
+
+def test_gemm_chain_raises_and_never_falls_back(dev):
+    """A K or type the kernel does not take raises before any launch."""
+    before = sum(mma_chain.launches.values())
+    for k in (256, 640):
+        a, b = probe_inputs(torch.int8, 128, dev, k=k)
+        with pytest.raises(ValueError, match="takes \\(type, K\\)"):
+            mma_chain(a, b, 2)
+    a, b = probe_inputs(torch.int8, 128, dev)
+    with pytest.raises(TypeError, match="int8 or bfloat16"):
+        mma_chain(a.half(), b.half(), 2)
+    with pytest.raises(ValueError, match="768"):
+        qparts.dot_chain(a, b, 2)
+    assert sum(mma_chain.launches.values()) == before
 
 
 @pytest.mark.parametrize("bpc", [1, 2, 4])
@@ -458,19 +535,16 @@ def test_fused_block_pool_boards_give_equal_bits(dev, b, c):
         fused_gpbias_block(*args, pool_boards=2)
 
 
+@pytest.mark.parametrize("chain", [3, qparts.DOT_CHAIN])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
-def test_dot_chain_matches_plain(dev, dtype):
-    x, w = qparts.dot_inputs(dtype, qparts.DOT_M, dev)  # 3872 rows: a partial last CTA
+def test_dot_chain_matches_plain(dev, dtype, chain):
+    x, w = qparts.dot_inputs(dtype, qparts.DOT_M, dev)  # 3872 rows: a partial last tile
     key = "int8" if dtype == torch.int8 else "bf16"
     before = qparts.dot_chain.launches[key]
-    got = qparts.dot_chain(x, w, 3)
+    got = qparts.dot_chain(x, w, chain)
     torch.cuda.synchronize()
     assert qparts.dot_chain.launches[key] == before + 1
-    ref = qparts.dot_chain_reference(x, w, 3)
-    if dtype == torch.int8:
-        assert torch.equal(got, ref)
-    else:
-        torch.testing.assert_close(got.float(), ref.float(), rtol=TOL, atol=TOL)
+    hold_to_plain(lambda *args: got, x, w, chain)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])

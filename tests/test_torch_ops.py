@@ -201,12 +201,22 @@ def test_int8_wrappers_reject_bad_operands():
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 def test_mma_probe_plain_version(dtype):
     """The probe's plain version (what its wrapper runs on CPU tensors)
-    against a numpy loop of the same chain: exact."""
+    against a numpy loop of the TPU kernel's chain (profile_int8_mxu.py:
+    X <- (X @ B) & 1 in int8, exact; X <- bf16(f32(X @ B) * 1e-3) in bf16,
+    at the bf16 bound), with b = B^T at the script's K = 512."""
     a, b = probe_inputs(dtype, 128, "cpu")
-    mma_chain.launches = 0
+    assert tuple(b.shape) == (512, 512)
+    mma_chain.launches.clear()
     got = mma_chain(a, b, 3)
-    assert mma_chain.launches == 0 and got.dtype == dtype
-    x, bm = a.float().numpy().astype(np.int64), b.float().numpy().astype(np.int64)
+    assert not mma_chain.launches and got.dtype == dtype
+    if dtype == torch.int8:
+        x, bm = a.float().numpy().astype(np.int64), b.float().numpy().astype(np.int64)
+        for _ in range(3):
+            x = (x @ bm.T) & 1
+        np.testing.assert_array_equal(got.float().numpy(), x)
+        return
+    x, bm = a.float().numpy(), b.float().numpy()
     for _ in range(3):
-        x = (x @ bm.T) & 1
-    np.testing.assert_array_equal(got.float().numpy(), x)
+        x = torch.from_numpy((x @ bm.T) * np.float32(1e-3)).to(torch.bfloat16).float().numpy()
+    assert np.abs(x).max() > 0.1  # magnitudes of order one along the chain
+    np.testing.assert_allclose(got.float().numpy(), x, rtol=TOL, atol=TOL)
