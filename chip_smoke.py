@@ -8,7 +8,10 @@ entry points whose kernels replace the TPU scripts' Pallas kernels
 (scripts/debug_fused_block.py, profile_pallas_conv.py,
 profile_conv_alternatives.py, profile_qblock_parts.py; profile_fused_forward
 for the conv on unpadded planes): each kernel against its plain version at a
-small size, then the scripts at their own sizes.
+small size, then the scripts at their own sizes. Phase 8 trains league mode
+(configs/katago-league.toml at full width, the cuts printed: the learner
+against K frozen opponents from the tiered pool, with the maintenance after
+each epoch) and drives the VecEnv host shim; no kernel lies on that path.
 The 3x3 conv is checked on every route (wgmma fed by TMA for Cin % 64 == 0,
 the same kernel after a zero pad of the channels for the 50 observation
 planes, mma.sync with 1 / 2 / 4 boards per CTA), with the per-route launch
@@ -290,6 +293,42 @@ def probe_phase(dev) -> tuple[dict, dict]:
     print(f"phase7 direct (cuDNN) chain x{alt.BLOCKS} B={alt.B} {mm['direct_ms']:.3f} ms; "
           f"winograd torch ops {mm['winograd_ms']:.3f} ms")
     return kernels, launches
+
+
+def league_phase(dev, card_line: str) -> None:
+    """configs/katago-league.toml at full width through SelfPlayTrainer: 3
+    epochs on the compact path (N=64, T=16, K=4) with maintenance after
+    each, drained at the end; 1 epoch of the dynamic fallback (K=3) at a
+    smaller depth; the VecEnv shim for 200 random legal steps. The cuts
+    are printed; scripts/league_smoke.py raises if a check fails. No
+    kernel lies on this path: league forwards are the eager model, as the
+    reference's are XLA's."""
+    from keisei_tpu_torch.scripts import league_smoke
+
+    t0 = time.monotonic()
+    runs = {}
+    for label, kw in (("phase8 league", dict(epochs=3, games=64, steps=16, opponents=4)),
+                      ("phase8 league_dynamic", dict(epochs=1, games=48, steps=16, opponents=3,
+                                                     blocks=8))):
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            runs[label] = league_smoke.run_league(dev, tmp, label=label, **kw)
+    vec = league_smoke.drive_vec_env(dev)
+    print(f"phase8 vec_env N=64 steps=200 steps_per_s={vec['steps_per_s']:.1f} "
+          f"episodes={vec['episodes']} sfen[0]={vec['sfen']}")
+    r = runs["phase8 league"]
+    summary = {
+        "card": card_line, "path": r["path"], "N": 64, "T": 16, "K": 4,
+        "rollout_s": [round(m["rollout_time"], 4) for m in r["metrics"]],
+        "update_s": [round(m["update_time"], 4) for m in r["metrics"]],
+        "env_steps_per_s": [round(64 * 16 / m["rollout_time"], 1) for m in r["metrics"]],
+        "maintenance_s": {k: round(v, 3) for k, v in r["maintenance_s"].items()},
+        "pool": r["counts"], "peak_mem_gb": round(r["peak_mem_gb"], 2),
+        "dynamic_K3_b8": {k: round(runs["phase8 league_dynamic"]["metrics"][0][k], 4)
+                          for k in ("rollout_time", "update_time")},
+        "vec_env_steps_per_s": round(vec["steps_per_s"], 1),
+        "phase_s": round(time.monotonic() - t0, 1)}
+    print(f"phase8 league {json.dumps(summary)}")
 
 
 def main() -> int:
@@ -826,6 +865,9 @@ def main() -> int:
     probe_kernels, probe_launches = probe_phase(dev)
     kernels.update(probe_kernels)
     launches.update(probe_launches)
+
+    # -- phase 8: league training on the card --------------------------------------
+    league_phase(dev, card_line)
 
     sources = {
         PADDED_STEM: ("keisei_tpu_torch/csrc/conv3x3_wgmma.cu", "keisei_tpu/ops/conv3x3.py:69"),

@@ -1,7 +1,7 @@
 """Connection management, schema init, and generic row helpers.
 
 The port's own copy of the part of keisei_tpu/db/core.py that the training
-observer reaches: WAL-mode connections with busy timeouts, idempotent
+observer and the league reach: WAL-mode connections with busy timeouts, idempotent
 schema creation with a version guard, and dict -> row plumbing.
 """
 
@@ -79,6 +79,23 @@ def write_row(db_path: str, table: str, row: dict[str, Any], replace: bool = Fal
         rowid = insert(conn, table, row, replace=replace)
         conn.commit()
         return rowid
+    finally:
+        conn.close()
+
+
+def fetch_all(db_path: str, sql: str, params: tuple = ()) -> list[dict[str, Any]]:
+    conn = connect(db_path)
+    try:
+        return [dict(r) for r in conn.execute(sql, params).fetchall()]
+    finally:
+        conn.close()
+
+
+def fetch_one(db_path: str, sql: str, params: tuple = ()) -> dict[str, Any] | None:
+    conn = connect(db_path)
+    try:
+        row = conn.execute(sql, params).fetchone()
+        return dict(row) if row else None
     finally:
         conn.close()
 

@@ -2,8 +2,9 @@
 snapshots.
 
 The port's own copy of the write surface of keisei_tpu/db/telemetry.py that
-the training observer calls. The dashboard's read surface stays in the JAX
-package, which reads the same tables.
+the training observer calls, and `read_training_state`, where a league run
+finds its learner's entry on resume. The dashboard's read surface stays in
+the JAX package, which reads the same tables.
 """
 
 from __future__ import annotations
@@ -47,6 +48,10 @@ def write_training_state(db_path: str, state: dict[str, Any]) -> None:
         "learner_entry_id": state.get("learner_entry_id"),
     }
     core.write_row(db_path, "training_state", row, replace=True)
+
+
+def read_training_state(db_path: str) -> dict[str, Any] | None:
+    return core.fetch_one(db_path, "SELECT * FROM training_state WHERE id = 1")
 
 
 def set_status(db_path: str, status: str) -> None:

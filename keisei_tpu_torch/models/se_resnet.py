@@ -13,7 +13,9 @@ Numerics follow the flax model where PyTorch's defaults differ:
 - the global pool's std is the population std with 1e-10 inside the sqrt;
 - compute runs in `params.dtype` (bfloat16 by default, via autocast),
   parameters and BatchNorm statistics stay float32, and value_fc2 /
-  score_fc2 run in float32 as the flax model's do.
+  score_fc2 run in float32 as the flax model's do. A bfloat16 state dict
+  (a league snapshot, through `torch.func.functional_call`) runs the same
+  way: BatchNorm and the two float32 heads widen its tensors first.
 Layout is NCHW inside; the policy logits leave as (B, 9, 9, 139).
 """
 
@@ -80,9 +82,10 @@ class FlaxBatchNorm(nn.Module):
                 self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
                 self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
         else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
-        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias[None, :, None, None]
+            mean, var = self.running_mean.float(), self.running_var.float()
+        mul = torch.rsqrt(var + BN_EPS) * self.weight.float()
+        y = ((xf - mean[None, :, None, None]) * mul[None, :, None, None]
+             + self.bias.float()[None, :, None, None])
         return y.to(x.dtype)
 
 
@@ -93,6 +96,12 @@ def global_pool(x: torch.Tensor) -> torch.Tensor:
     amax = xf.amax(dim=(2, 3))
     var = ((xf - mean[:, :, None, None]) ** 2).mean(dim=(2, 3))
     return torch.cat([mean, amax, torch.sqrt(var + 1e-10)], dim=1)
+
+
+def _linear_f32(fc: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`fc` in float32 whatever its weights' type: a bfloat16 snapshot's
+    weights are widened, as flax widens them for a float32 Dense."""
+    return F.linear(x.float(), fc.weight.float(), fc.bias.float())
 
 
 def _conv3(cin: int, cout: int) -> nn.Conv2d:
@@ -160,8 +169,8 @@ class SEResNetModel(nn.Module):
             pool = global_pool(x)
             v = F.relu(self.value_fc1(pool))
             s = F.relu(self.score_fc1(pool))
-        value = self.value_fc2(v.float())
-        score = self.score_fc2(s.float())
+        value = _linear_f32(self.value_fc2, v)
+        score = _linear_f32(self.score_fc2, s)
         return KataGoOutput(
             policy_logits=pol.float().permute(0, 2, 3, 1),
             value_logits=value,

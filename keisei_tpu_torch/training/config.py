@@ -3,8 +3,9 @@
 Reads the same configs/*.toml files with the same sections, dataclasses,
 defaults and validation. Unknown keys are rejected per section; the
 torch-only reference knobs (use_amp, compile_mode, compile_dynamic) are
-accepted and ignored, as in the JAX package. `[league]` with
-`enabled = true` (its default) raises: league mode is not ported yet.
+accepted and ignored, as in the JAX package. `[league]` builds a
+LeagueConfig (league/config.py); an enabled league refuses what is not
+ported yet: `tournament_enabled = true` and a league over several devices.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import logging
 import tomllib
 from dataclasses import dataclass, field, fields
 
+from ..league.config import LeagueConfig, league_config_from_dict
 from ..models.registry import VALID_ARCHITECTURES, validate_model_params
 from .ppo import KataGoPPOParams
 
@@ -105,6 +107,7 @@ class Config:
     display: DisplayConfig = field(default_factory=DisplayConfig)
     run: RunConfig = field(default_factory=RunConfig)
     distributed: DistributedConfig = field(default_factory=DistributedConfig)
+    league: LeagueConfig | None = None  # when [league] is present
 
 
 def _build(cls, section: dict, name: str, ignored: set[str] = frozenset()):
@@ -131,12 +134,6 @@ def config_from_dict(raw: dict, source: str = "<dict>") -> Config:
     unknown = set(raw) - known
     if unknown:
         raise ValueError(f"unknown config sections in {source}: {sorted(unknown)}")
-    if "league" in raw:
-        if raw["league"].get("enabled", True):
-            raise NotImplementedError(
-                f"{source}: league mode is not yet ported to keisei_tpu_torch")
-        logger.info("config: [league] enabled = false, section ignored")
-
     model_raw = dict(raw.get("model", {}))
     model_params = model_raw.pop("params", {})
     model = _build(ModelConfig, {**model_raw, "params": model_params}, "model")
@@ -144,9 +141,26 @@ def config_from_dict(raw: dict, source: str = "<dict>") -> Config:
     algo_raw = dict(training_raw.pop("algorithm_params", {}))
     training = _build(TrainingConfig, training_raw, "training", _IGNORED_TRAINING_KEYS)
     algo = _build(KataGoPPOParams, algo_raw, "training.algorithm_params", _IGNORED_ALGO_KEYS)
+    distributed = _build(DistributedConfig, raw.get("distributed", {}), "distributed")
+    league = league_config_from_dict(raw["league"]) if "league" in raw else None
+    if league is not None and league.enabled:
+        if league.tournament_enabled:
+            raise NotImplementedError(
+                f"{source}: [league] tournament_enabled = true is not yet ported to "
+                "keisei_tpu_torch (the in-process tournament and the sidecar workers "
+                "come in the next slice); set it to false")
+        if distributed.num_devices not in (0, 1):
+            raise NotImplementedError(
+                f"{source}: league mode over several devices is not yet ported to "
+                "keisei_tpu_torch (distributed.num_devices must be 0 or 1)")
+        if not league.color_randomization:
+            logger.warning(
+                "config: league.color_randomization=false biases learner color "
+                "exposure; the split-merge rollout re-rolls colors per episode when "
+                "enabled")
     return Config(
         model=model, training=training, algorithm_params=algo,
         display=_build(DisplayConfig, raw.get("display", {}), "display"),
         run=_build(RunConfig, raw.get("run", {}), "run"),
-        distributed=_build(DistributedConfig, raw.get("distributed", {}), "distributed"),
+        distributed=distributed, league=league,
     )

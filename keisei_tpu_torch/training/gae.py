@@ -7,7 +7,7 @@ kept as they are:
 - `alternating=True` negates the carried chain every step, because
   consecutive rows alternate the mover's perspective (negamax);
 - an explicit `next_value_override` survives the `terminated` zeroing.
-The league-only `compute_gae_masked` is not ported yet.
+`compute_gae_masked` is the league's GAE over a sparsely valid grid.
 """
 
 from __future__ import annotations
@@ -50,6 +50,46 @@ def compute_gae(
         adv[t] = carry
     return adv
 
+
+
+@torch.no_grad()
+def compute_gae_masked(
+    rewards: torch.Tensor,      # (T, N)
+    values: torch.Tensor,       # (T, N)
+    dones: torch.Tensor,        # (T, N) bool: episode boundaries cut the chain
+    valid: torch.Tensor,        # (T, N) bool: False slots are skipped entirely
+    next_value: torch.Tensor,   # (N,)
+    gamma: float,
+    lam: float,
+    next_value_override: torch.Tensor | None = None,  # (T, N), NaN = default
+) -> torch.Tensor:
+    """GAE over a sparsely valid (T, N) grid (league trajectories).
+
+    Invalid slots pass the (advantage, next value) carries through
+    unchanged and get advantage 0, so each env's valid slots chain like a
+    compacted sequence. Chain and bootstrap cut at `dones`, except that an
+    explicit override IS the bootstrap (truncation: -V(terminal)) and
+    survives the cut."""
+    rewards = rewards.float()
+    values = values.float()
+    not_done = 1.0 - dones.float()
+    valid = valid.bool()
+    ov = (torch.full_like(rewards, float("nan")) if next_value_override is None
+          else next_value_override.float())
+    has_ov = ~torch.isnan(ov)
+    ov = torch.nan_to_num(ov)
+    boot = torch.where(has_ov, 1.0, not_done)
+    adv = torch.empty_like(rewards)
+    gae_c = torch.zeros_like(next_value, dtype=torch.float32)
+    nv_c = next_value.float()
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        nv = torch.where(has_ov[t], ov[t], nv_c)
+        delta = rewards[t] + gamma * nv * boot[t] - values[t]
+        gae = delta + gamma * lam * not_done[t] * gae_c
+        adv[t] = torch.where(valid[t], gae, 0.0)
+        gae_c = torch.where(valid[t], gae, gae_c)
+        nv_c = torch.where(valid[t], values[t], nv_c)
+    return adv
 
 @torch.no_grad()
 def alternating_perspective_overrides(

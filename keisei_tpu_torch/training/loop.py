@@ -1,12 +1,20 @@
-"""Self-play training loop (counterpart of keisei_tpu/training/loop.py, no-league
-path): per epoch one rollout (T plies x N envs on the device) and one PPO
+"""Self-play training loop (counterpart of keisei_tpu/training/loop.py):
+per epoch one rollout (T plies x N envs on the device) and one PPO
 update, plus host-side orchestration: entropy schedule, plateau LR,
 periodic checkpoints, episode statistics and the SQLite observer.
+
+With `[league] enabled = true` the rollout is the split-merge league
+rollout (the learner against K frozen opponents from the tiered pool,
+training/league_rollout.py) and each epoch ends with league maintenance:
+Elo and results, learner snapshots into the pool, tier reviews, the
+historical library and the gauntlet, on a worker thread by default
+(`league.async_maintenance`).
 
 Run:  python -m keisei_tpu_torch.training.loop --config configs/katago-b40c256.toml \
           --device cuda
 
-League mode and multi-device training are not ported yet and raise.
+Multi-device training, the league's tournament and its sidecar workers
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -14,16 +22,26 @@ from __future__ import annotations
 import logging
 import os
 import time
-from dataclasses import dataclass, replace
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, fields, replace
 from types import SimpleNamespace
 
 import torch
 
+from .. import db
 from ..env.vec_env import EnvCore
+from ..league.dynamic_trainer import DynamicTrainer
+from ..league.historical import HistoricalGauntlet, HistoricalLibrary
+from ..league.league_ops import record_epoch_results, stack_cohort_variables
+from ..league.scheduler import MatchScheduler, PriorityScorer, build_match_class_weights
+from ..league.store import OpponentStore, Role
+from ..league.tiers import TieredPool
 from ..models.registry import build_model, get_model_contract
 from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint, load_meta, prune_checkpoints, save_checkpoint
 from .config import Config
+from .league_rollout import compact_supported, make_league_rollout, parity_colors
 from .observability import TrainingObserver
 from .ppo import (entropy_coeff_schedule, get_learning_rate, make_optimizer, make_ppo_update,
                   set_learning_rate)
@@ -79,7 +97,7 @@ class EpochMetrics:
 
 
 class SelfPlayTrainer:
-    """No-league self-play trainer on one device."""
+    """Self-play (and league) trainer on one device."""
 
     def __init__(self, config: Config, device: str | torch.device = "cuda",
                  metrics_sink=None, observer=None, resume_from: str | None = None):
@@ -115,9 +133,24 @@ class SelfPlayTrainer:
             lambda_score=ap.lambda_score, score_blend_alpha=ap.score_blend_alpha)
         self.optimizer = make_optimizer(self.model, ap)
         self.T = tc.effective_steps_per_epoch
-        self._rollout = make_selfplay_rollout(
-            self.env_core, self.model, self.adapter, self.T,
-            forward_fn=self._rollout_forward_fn(tc.rollout_forward))
+        self.league_enabled = bool(config.league is not None and config.league.enabled)
+        if self.league_enabled:
+            if tc.rollout_forward not in ("auto", "flax"):
+                raise ValueError(
+                    f"rollout_forward={tc.rollout_forward!r} is not supported in league "
+                    "mode (the split-merge rollout runs each opponent block on its own "
+                    "weights; only the eager forward takes them)")
+            self.K = config.league.opponents_per_epoch
+            if tc.num_games % self.K != 0:
+                raise ValueError(f"num_games {tc.num_games} must divide by "
+                                 f"opponents_per_epoch {self.K}")
+            self._rollout = make_league_rollout(
+                self.env_core, self.model, self.adapter, self.T, self.K,
+                color_randomization=config.league.color_randomization)
+        else:
+            self._rollout = make_selfplay_rollout(
+                self.env_core, self.model, self.adapter, self.T,
+                forward_fn=self._rollout_forward_fn(tc.rollout_forward))
         self._update = make_ppo_update(self.model, self.adapter, ap, self.optimizer)
         self.lr_sched = PlateauScheduler(factor=tc.lr_plateau_factor,
                                          patience=tc.lr_plateau_patience, min_lr=tc.lr_min)
@@ -128,6 +161,142 @@ class SelfPlayTrainer:
         self._maybe_resume()
         self.total_episodes = 0
         self.total_ply = 0
+
+        # league maintenance runs FIFO on one worker (snapshot before the
+        # gauntlet that should see it); a backlog is bounded in
+        # _league_epoch_end
+        self._maint_executor = None
+        self._maint_futures: deque = deque()
+        self._maint_phase_s: dict[str, float] = {}  # worker seconds per phase
+        if self.league_enabled:
+            self._init_league()
+            if config.league.async_maintenance:
+                self._maint_executor = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="keisei-league")
+
+    # -- league wiring -----------------------------------------------------------
+
+    def _init_league(self) -> None:
+        """Opponent pool, tiers, scheduler, historical library and
+        gauntlet, and the per-env learner colors."""
+        lc = self.config.league
+        tc = self.config.training
+        n = tc.num_games
+        self.learner_color = self._fresh_colors(n)
+        self._cohort: list = []
+        self._cohort_slot_ids = None
+        self._cohort_key = None
+        self._cohort_vars = None
+
+        db_path = self.config.display.db_path or os.path.join(
+            lc.storage.league_dir, "league.db")
+        self.store = OpponentStore(
+            db_path, lc.storage.league_dir, cache_size=lc.storage.cache_entries,
+            cache_bytes=lc.storage.cache_bytes_gb * 1e9, device=self.device)
+        # clamp update_counts whose async weight flush was lost to a crash
+        # back to the committed generation (no flush can be in flight yet)
+        self.store.reconcile_update_counts()
+        self.pool = TieredPool(self.store, lc)
+        self.scorer = PriorityScorer(lc.priority, build_match_class_weights(lc.scheduler))
+        self.scheduler = MatchScheduler(lc.scheduler, self.scorer)
+        self.dyn_trainer = DynamicTrainer(
+            self.store, self.model, lc.dynamic,
+            learner_lr=self.config.algorithm_params.learning_rate,
+            contract=get_model_contract(self.config.model.architecture))
+        self.dyn_trainer.architecture = self.config.model.architecture
+        self.historical = HistoricalLibrary(self.store, lc.history)
+        # the gauntlet's games end at the training max_ply (the reference's
+        # gauntlet keeps its own default of 512)
+        self.gauntlet = HistoricalGauntlet(self.store, lc.gauntlet,
+                                           historical_k=lc.elo.historical_k,
+                                           max_ply=tc.max_ply)
+
+        # bootstrap: the pool must never be empty
+        self.pool.bootstrap_from_flat_pool(self.epoch)
+        if self.store.pool_size() == 0:
+            entry = self.pool.snapshot_learner(
+                self.model.state_dict(), self.config.model.architecture,
+                dict(self.config.model.params), self.epoch)
+            self.learner_entry_id = entry.id
+            return
+        st = db.read_training_state(db_path) if self.config.display.db_path else None
+        if st and st.get("learner_entry_id"):
+            self.learner_entry_id = st["learner_entry_id"]
+        else:
+            # the NEWEST snapshot (list_entries orders by Elo; the strongest
+            # entry may be an old frontier anchor)
+            latest = max(self.store.list_entries(), key=lambda e: (e.created_epoch, e.id))
+            self.learner_entry_id = latest.id
+
+    def _fresh_colors(self, n: int) -> torch.Tensor:
+        """Learner colors for n fresh envs: the parity pattern on the
+        compact path, a draw with color randomization, else Black."""
+        lc = self.config.league
+        if compact_supported(self.T, self.K, lc.color_randomization):
+            return parity_colors(n, self.device)
+        if lc.color_randomization:
+            return (torch.rand(n, generator=self.generator, device=self.device) < 0.5).int()
+        return torch.zeros(n, dtype=torch.int32, device=self.device)
+
+    def _sample_cohort(self) -> list:
+        """K distinct opponents for this epoch, cycled to fill K env blocks."""
+        want_params = dict(self.config.model.params)
+
+        def compatible(e):
+            # same arch AND same shape params: a reused league_dir can hold
+            # same-architecture entries of other sizes
+            return (e.architecture == self.config.model.architecture
+                    and e.model_params == want_params)
+
+        by_role = {r: [e for e in self.store.list_by_role(r) if compatible(e)]
+                   for r in (Role.DYNAMIC, Role.FRONTIER_STATIC, Role.RECENT_FIXED)}
+        cohort = self.scheduler.sample_k_for_learner(by_role, self.K) if any(
+            by_role.values()) else []
+        if not cohort:  # no opponents yet: play the learner's own snapshot
+            cohort = [self.store.get_entry(self.learner_entry_id)]
+        base = list(cohort)
+        while len(cohort) < self.K:  # cycle the sampled set to fill K blocks
+            cohort.append(base[len(cohort) % len(base)])
+        return cohort[: self.K]
+
+    def _cohort_for_epoch(self) -> dict:
+        """Sample this epoch's cohort and return its K-stacked bf16 state
+        dict, reused while the (entry, update_count) keys are unchanged.
+
+        Env block k plays whoever sits in slot k, so a game straddling the
+        epoch boundary would switch opponents mid-game and credit its
+        result to an entry that played only its tail: the blocks whose
+        slot changed entries are reset instead (the boundary already
+        bootstrapped those games' values). An update_count change of the
+        same entry keeps the games."""
+        self._cohort = self._sample_cohort()
+        ck = tuple((e.id, e.update_count) for e in self._cohort)
+        new_ids = tuple(e.id for e in self._cohort)
+        old_ids = self._cohort_slot_ids
+        if old_ids is not None and new_ids != old_ids:
+            self._reset_swapped_blocks([k for k, (a, b) in enumerate(zip(old_ids, new_ids))
+                                        if a != b])
+        self._cohort_slot_ids = new_ids
+        if self._cohort_key != ck:
+            self._cohort_vars = stack_cohort_variables(
+                self.store, self._cohort, self.model.state_dict(), dtype=torch.bfloat16)
+            self._cohort_key = ck
+        return self._cohort_vars
+
+    def _reset_swapped_blocks(self, slots: list[int]) -> None:
+        """Restart the env blocks whose cohort slot changed entries (the
+        truncation path), and give them fresh learner colors."""
+        if not slots:
+            return
+        N = self.config.training.num_games
+        B = N // self.K
+        mask = torch.zeros(N, dtype=torch.bool, device=self.device)
+        for k in slots:
+            mask[k * B:(k + 1) * B] = True
+        fresh = self.env_core.init()
+        self.env_carry = tuple(_select_envs(mask, f, c) for f, c in zip(fresh, self.env_carry))
+        self.learner_color = torch.where(mask, self._fresh_colors(N), self.learner_color)
+        logger.debug("cohort swap: reset %d env blocks %s", len(slots), slots)
 
     def _rollout_forward_fn(self, mode: str):
         """The rollout's inference path (TrainingConfig.rollout_forward).
@@ -210,8 +379,21 @@ class SelfPlayTrainer:
         tc = self.config.training
         t0 = time.monotonic()
         self.observer.heartbeat(self.epoch, self.epoch * self.T, "rollout")
-        carry, traj, next_value, stats = self._rollout(*self.env_carry, self.generator)
-        self.env_carry = carry
+        league_stats = None
+        if self.league_enabled:
+            opp_vars = self._cohort_for_epoch()
+            carry, traj, next_value, league_stats = self._rollout(
+                opp_vars, *self.env_carry, self.learner_color, self.generator)
+            *carry, self.learner_color = carry
+            stats = league_stats.base
+            if league_stats.parity_mismatch:
+                logger.warning(
+                    "league parity invariant violated for %d env-steps this epoch: "
+                    "learner/opponent actions went to the wrong seat",
+                    league_stats.parity_mismatch)
+        else:
+            carry, traj, next_value, stats = self._rollout(*self.env_carry, self.generator)
+        self.env_carry = tuple(carry)
         self._sync()
         t1 = time.monotonic()
 
@@ -232,6 +414,8 @@ class SelfPlayTrainer:
         self.epoch += 1
         self.total_episodes += stats.episodes
         self.total_ply += stats.total_ply
+        if self.league_enabled:
+            self._league_epoch_end(league_stats)
         ckpt = self.save() if self.epoch % tc.checkpoint_interval == 0 else None
         t3 = time.monotonic()
         em = EpochMetrics(
@@ -245,6 +429,96 @@ class SelfPlayTrainer:
         if self.observer.enabled:
             self._snapshot()
         return em
+
+    def _league_epoch_end(self, league_stats) -> None:
+        """Post-epoch league bookkeeping: Elo, snapshots, reviews,
+        historical refresh and the gauntlet.
+
+        With league.async_maintenance (default) only the weights copy
+        stays here, on the training thread, when a snapshot is due: a
+        detached copy of every state-dict tensor (bf16 where
+        storage.snapshot_dtype says so), taken before the next update
+        changes the parameters in place. The rest runs FIFO on the
+        maintenance worker and overlaps the next epoch."""
+        lc = self.config.league
+        epoch = self.epoch
+        snapshot_due = epoch % lc.epochs_per_seat == 0 or epoch % lc.snapshot_interval == 0
+        vars_copy = None
+        if snapshot_due:
+            sd = self.model.state_dict()
+            if lc.storage.snapshot_dtype == "bfloat16":
+                vars_copy = {k: v.detach().to(torch.bfloat16) if v.is_floating_point()
+                             else v.detach().clone() for k, v in sd.items()}
+            else:
+                vars_copy = {k: v.detach().clone() for k, v in sd.items()}
+        # captured by value: the worker must see THIS epoch's cohort and learner
+        args = (epoch, list(self._cohort), self.learner_entry_id, league_stats, vars_copy)
+        if self._maint_executor is None:
+            self._league_maintenance(*args)
+            return
+        while self._maint_futures and self._maint_futures[0].done():
+            self._maint_futures.popleft().result()  # surface worker crashes
+        if len(self._maint_futures) >= 4:
+            # each queued snapshot pins a copy of the parameters on the
+            # device: block until the worker catches up
+            logger.warning("league maintenance backlog hit %d epochs; blocking until the "
+                           "worker drains", len(self._maint_futures))
+            while len(self._maint_futures) > 1:
+                self._maint_futures.popleft().result()
+        self._maint_futures.append(self._maint_executor.submit(self._league_maintenance, *args))
+
+    def _league_maintenance(self, epoch: int, cohort: list, learner_id: int,
+                            league_stats, vars_copy) -> None:
+        """The maintenance body: on the worker in async mode (inline
+        otherwise), from captured values only. The store is an RLock plus
+        a connection per call; the gauntlet plays on the store's device
+        through its own modules and generators."""
+        last = time.monotonic()
+        lc = self.config.league
+
+        def mark(phase: str) -> None:
+            nonlocal last
+            now = time.monotonic()
+            self._maint_phase_s[phase] = self._maint_phase_s.get(phase, 0.0) + now - last
+            last = now
+
+        role_k = {Role.FRONTIER_STATIC: lc.elo.frontier_k, Role.DYNAMIC: lc.elo.dynamic_k,
+                  Role.RECENT_FIXED: lc.elo.recent_k}
+        try:
+            record_epoch_results(self.store, self.scheduler, learner_id, cohort,
+                                 league_stats, epoch, lc.elo_k_factor, role_k,
+                                 elo_floor=lc.elo_floor)
+        except Exception:
+            logger.exception("league result recording failed; continuing")
+        mark("record_results")
+        try:
+            if vars_copy is not None:
+                entry = self.pool.snapshot_learner(
+                    vars_copy, self.config.model.architecture,
+                    dict(self.config.model.params), epoch)
+                self.learner_entry_id = entry.id
+                if self.config.display.db_path:
+                    db.update_training_progress(self.config.display.db_path, epoch,
+                                                epoch * self.T, learner_entry_id=entry.id)
+            mark("snapshot")
+            self.store.carry_forward_elo(epoch)
+            self.pool.maybe_review_frontier(epoch)
+            # retired/evicted entries release dynamic-trainer caches
+            self.dyn_trainer.retain_only({e.id for e in self.store.list_by_role(Role.DYNAMIC)})
+            mark("elo_review")
+            if self.historical.is_due_for_refresh(epoch):
+                self.historical.refresh(epoch)
+            if self.gauntlet.is_due(epoch):
+                self.gauntlet.run_gauntlet(epoch, self.store.get_entry(self.learner_entry_id))
+            mark("historical_gauntlet")
+        except Exception:
+            logger.exception("league epoch maintenance failed; continuing")
+
+    def drain_maintenance(self) -> None:
+        """Block until every queued maintenance task has completed: the
+        synchronization point for tests and teardown."""
+        while self._maint_futures:
+            self._maint_futures.popleft().result()
 
     def _snapshot(self) -> None:
         """Live boards of the first envs for the dashboard; never fatal."""
@@ -279,8 +553,28 @@ class SelfPlayTrainer:
                 em.wins_black, em.wins_white, em.draws, em.rollout_time,
                 steps / max(em.rollout_time, 1e-9), em.update_time,
                 run_steps / max(time.monotonic() - wall0, 1e-9))
+        self.drain_maintenance()
         self.save()
+        if self.league_enabled:
+            # queued async weight flushes land before exit; a failed final
+            # flush is loud but does not abort the rest of the teardown
+            try:
+                self.store.wait_for_flushes()
+            except RuntimeError:
+                logger.exception("final league weight flush failed")
         self.observer.on_stop("stopped")
+
+
+def _select_envs(mask: torch.Tensor, new, old):
+    """Per env, `new` where `mask` else `old`: a GameState, or a tensor
+    with a leading N."""
+    def sel(a, b):
+        return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    if isinstance(new, torch.Tensor):
+        return sel(new, old)
+    return type(new)(**{f.name: sel(getattr(new, f.name), getattr(old, f.name))
+                        for f in fields(new)})
 
 
 def main(argv=None):

@@ -1,11 +1,13 @@
-"""KataGo-style multi-head PPO, self-play branch (counterpart of
-keisei_tpu/training/ppo.py).
+"""KataGo-style multi-head PPO (counterpart of keisei_tpu/training/ppo.py).
 
 Clipped surrogate, W/D/L cross-entropy with ignore-index, score MSE,
 legal-only entropy, global advantage normalisation (population std),
 global-norm gradient clipping exactly as optax.clip_by_global_norm
 (g * max_norm / ||g|| when ||g|| >= max_norm, no epsilon) and Adam with the
 optax defaults. The update mutates the model and optimizer in place.
+A league trajectory (`Trajectory.valid` set) takes the sparse branch:
+masked GAE, the weighted mean and population variance of the
+advantages with empty slots zeroed, and sample weights in every loss.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .gae import compute_gae
+from .gae import compute_gae, compute_gae_masked
 from .value_adapter import MultiHeadValueAdapter
 
 SCORE_NORMALIZATION = 76.0  # shared with the SL pipeline (keisei_tpu/sl/dataset.py)
@@ -75,6 +77,9 @@ class Trajectory:
     value_cats: torch.Tensor           # (T, N) int64: -1 ignore / 0 W / 1 D / 2 L
     score_targets: torch.Tensor        # (T, N) f32 (normalised)
     next_value_override: torch.Tensor  # (T, N) f32, NaN = default bootstrap
+    # league mode only: False slots hold no learner transition (split-merge
+    # finalization is sparse in time). None = every slot valid (self-play).
+    valid: torch.Tensor | None = None  # (T, N) bool
 
 
 def make_optimizer(model: torch.nn.Module, cfg: KataGoPPOParams) -> torch.optim.Adam:
@@ -152,15 +157,20 @@ def make_ppo_update(model: torch.nn.Module, adapter: MultiHeadValueAdapter,
         adv = mb["advantages"]
         surr1 = ratio * adv
         surr2 = torch.clamp(ratio, 1 - cfg.clip_epsilon, 1 + cfg.clip_epsilon) * adv
-        policy_loss = -torch.minimum(surr1, surr2).mean()
-
         probs = torch.exp(logp_all)
         safe_logp = torch.where(mb["legal_masks"], logp_all, 0.0)
-        entropy = (-(probs * safe_logp).sum(dim=-1)).mean()
+        w = mb.get("weights")
+        if w is None:
+            policy_loss = -torch.minimum(surr1, surr2).mean()
+            entropy = (-(probs * safe_logp).sum(dim=-1)).mean()
+        else:
+            w_sum = torch.clamp(w.sum(), min=1.0)
+            policy_loss = -(torch.minimum(surr1, surr2) * w).sum() / w_sum
+            entropy = ((-(probs * safe_logp).sum(dim=-1)) * w).sum() / w_sum
 
         value_score_loss, score_loss = adapter.value_loss(
             out, returns=mb["returns"], value_cats=mb["value_cats"],
-            score_targets=mb["score_targets"])
+            score_targets=mb["score_targets"], sample_weight=w)
         loss = cfg.lambda_policy * policy_loss + value_score_loss - entropy_coeff * entropy
 
         optimizer.zero_grad(set_to_none=True)
@@ -181,13 +191,27 @@ def make_ppo_update(model: torch.nn.Module, adapter: MultiHeadValueAdapter,
                 f"batch_size {cfg.batch_size} exceeds the {S}-sample trajectory; no "
                 "minibatch would run — lower algorithm_params.batch_size or raise "
                 "steps/num_games")
-        terminated = traj.terminated if cfg.use_terminated_for_gae else traj.dones
-        advantages = compute_gae(
-            traj.rewards, traj.values, terminated, next_value, cfg.gamma, cfg.gae_lambda,
-            traj.next_value_override, chain_cut=traj.dones, alternating=True)
+        if traj.valid is None:
+            terminated = traj.terminated if cfg.use_terminated_for_gae else traj.dones
+            advantages = compute_gae(
+                traj.rewards, traj.values, terminated, next_value, cfg.gamma, cfg.gae_lambda,
+                traj.next_value_override, chain_cut=traj.dones, alternating=True)
+            weights = None
+        else:
+            # league split-merge: sparse learner slots, done-bounded chains
+            advantages = compute_gae_masked(
+                traj.rewards, traj.values, traj.dones, traj.valid, next_value,
+                cfg.gamma, cfg.gae_lambda, traj.next_value_override)
+            weights = traj.valid.reshape(S).float()
         returns = advantages + traj.values
         adv = advantages.reshape(S)
-        adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+        if weights is None:
+            adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+        else:
+            n_v = torch.clamp(weights.sum(), min=1.0)
+            mean = (adv * weights).sum() / n_v
+            var = (((adv - mean) ** 2) * weights).sum() / n_v
+            adv = (adv - mean) / (torch.sqrt(var) + 1e-8) * weights
         data = {
             "obs": traj.obs.reshape(S, -1, 9, 9),
             "actions": traj.actions.reshape(S).long(),
@@ -198,6 +222,8 @@ def make_ppo_update(model: torch.nn.Module, adapter: MultiHeadValueAdapter,
             "value_cats": traj.value_cats.reshape(S),
             "score_targets": traj.score_targets.reshape(S),
         }
+        if weights is not None:
+            data["weights"] = weights
         dev = traj.rewards.device
         model.train()
         rows = []

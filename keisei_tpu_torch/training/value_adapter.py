@@ -30,20 +30,28 @@ class MultiHeadValueAdapter:
             v = (1.0 - self.score_blend_alpha) * v + self.score_blend_alpha * s
         return v
 
-    def value_loss(self, out: KataGoOutput, *, returns, value_cats, score_targets):
-        """(weighted value + score loss, raw score loss); self-play weights
-        every sample 1, so the league-only sample weights are not ported."""
+    def value_loss(self, out: KataGoOutput, *, returns, value_cats, score_targets,
+                   sample_weight=None):
+        """(weighted value + score loss, raw score loss). `sample_weight`
+        (league trajectories: 0 on empty slots) drops its zero-weight
+        samples from the W/D/L mean and weights the score mean."""
         del returns
         logits = out.value_logits.float()
         logp = F.log_softmax(logits, dim=-1)
         valid = value_cats >= 0
+        if sample_weight is not None:
+            valid = valid & (sample_weight > 0)
         cats = torch.clamp(value_cats, min=0).long()
         ce = -torch.gather(logp, 1, cats[:, None])[:, 0]
         n_valid = valid.sum()
         wdl = torch.where(valid, ce, 0.0).sum() / torch.clamp(n_valid, min=1)
         # graph-connected zero when no labels
         wdl = torch.where(n_valid > 0, wdl, logits.sum() * 0.0)
-        score = ((out.score_lead[:, 0].float() - score_targets) ** 2).mean()
+        sq = (out.score_lead[:, 0].float() - score_targets) ** 2
+        if sample_weight is None:
+            score = sq.mean()
+        else:
+            score = (sq * sample_weight).sum() / torch.clamp(sample_weight.sum(), min=1.0)
         return self.lambda_value * wdl + self.lambda_score * score, score
 
 

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's framework-free modules against
 the originals: engine tables, types, Zobrist keys and SFEN, the spectator
-data, and the observability database.
+data, the observability database, and the league's modules (copied whole,
+or ported with the functions they keep unchanged).
 
 The port keeps copies so that it never imports keisei_tpu; these tests keep
 the copies equal to what they copy: every constant array bit for bit, the
@@ -10,6 +11,7 @@ as the dashboard reads it.
 """
 
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -115,3 +117,129 @@ def test_a_database_the_port_wrote_reads_back_through_the_jax_package(tmp_path):
     assert all(np.isfinite(m["policy_loss"]) for m in metrics)
     snaps = jax_db.read_game_snapshots(db_path)
     assert len(snaps) == 4 and all(s["sfen"] for s in snaps)
+
+
+# -- the league's copies ----------------------------------------------------------
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("path", ["league/tiers.py", "league/scheduler.py",
+                                  "league/historical.py", "db/league_tables.py"])
+def test_league_copies_are_byte_identical(path):
+    """Framework-free modules copied whole: their relative imports resolve to
+    the port's own store, match and db, so not even an import line differs."""
+    ours = (REPO / "keisei_tpu_torch" / path).read_bytes()
+    assert ours == (REPO / "keisei_tpu" / path).read_bytes()
+
+
+def _same_source(port_mod, orig_mod, names):
+    import inspect
+
+    for name in names:
+        obj = orig_mod
+        ours = port_mod
+        for part in name.split("."):
+            obj, ours = getattr(obj, part), getattr(ours, part)
+        assert inspect.getsource(ours) == inspect.getsource(obj), name
+
+
+def test_league_config_parses_as_the_original():
+    """league/config.py is the original but for comments that speak of
+    the JAX package's platform: the same dataclasses, defaults and
+    validation (their source), and the same values from the repo's league
+    config and from a section that sets every sub-section."""
+    import dataclasses
+    import tomllib
+
+    from keisei_tpu.league import config as orig
+    from keisei_tpu_torch.league import config as port
+
+    classes = [n for n, v in vars(orig).items() if dataclasses.is_dataclass(v)]
+    assert classes == [n for n, v in vars(port).items() if dataclasses.is_dataclass(v)]
+    for name in classes:
+        ours, theirs = getattr(port, name), getattr(orig, name)
+        assert [(f.name, f.type) for f in dataclasses.fields(ours)] == \
+            [(f.name, f.type) for f in dataclasses.fields(theirs)], name
+        assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs()), name
+    assert {k: v.__name__ for k, v in port._SUB_SECTIONS.items()} == \
+        {k: v.__name__ for k, v in orig._SUB_SECTIONS.items()}
+    _same_source(port, orig, ["league_config_from_dict",
+                              *(f"{n}.__post_init__" for n in classes)])
+    with open(REPO / "configs" / "katago-league.toml", "rb") as f:
+        section = tomllib.load(f)["league"]
+    full = {**section, "history": {"slots": 3}, "gauntlet": {"interval_epochs": 7},
+            "elo": {"historical_k": 9.0}, "priority": {"repeat_penalty": -0.2},
+            "scheduler": {"challenge_window": 50}}
+    for raw in (section, full):
+        assert dataclasses.asdict(port.league_config_from_dict(raw)) == \
+            dataclasses.asdict(orig.league_config_from_dict(raw))
+    for bad in ({"mode": "solo"}, {"recent": {"bogus": 1}}, {"dynamic": {"lr_scale": 2.0}}):
+        with pytest.raises(ValueError) as ours:
+            port.league_config_from_dict(bad)
+        with pytest.raises(ValueError) as theirs:
+            orig.league_config_from_dict(bad)
+        assert str(ours.value) == str(theirs.value)
+
+
+_STORE_SAME = [
+    "Role", "EntryStatus", "display_name_for", "flavour_facts_for", "compute_elo_update",
+    "OpponentEntry", *(f"OpponentStore.{m}" for m in (
+        "reconcile_update_counts", "_weights_version", "_entry_dir", "clone_entry",
+        "get_entry", "list_entries", "list_by_role", "count_unique_opponents", "elo_spread",
+        "update_role", "retire_entry", "set_protection", "set_training_enabled",
+        "bump_update_count", "wait_for_flushes", "record_result",
+        "carry_forward_elo", "pool_size"))]
+
+
+@pytest.mark.parametrize("which", ["store", "league_ops", "dynamic_trainer", "db"])
+def test_league_trimmed_copies_keep_the_originals_source(which):
+    """Where a module is ported (weight I/O in torch) or trimmed, every
+    function it keeps from the original is the original's source."""
+    import importlib
+
+    port = lambda m: importlib.import_module(f"keisei_tpu_torch.{m}")  # noqa: E731
+    orig = lambda m: importlib.import_module(f"keisei_tpu.{m}")  # noqa: E731
+    if which == "store":
+        _same_source(port("league.store"), orig("league.store"), _STORE_SAME)
+    elif which == "league_ops":
+        _same_source(port("league.league_ops"), orig("league.league_ops"),
+                     ["record_epoch_results"])
+    elif which == "dynamic_trainer":
+        _same_source(port("league.dynamic_trainer"), orig("league.dynamic_trainer"), [
+            f"DynamicTrainer.{m}" for m in ("disabled_entries", "retain_only",
+                                            "_rate_limited", "_globally_disabled",
+                                            "begin_round", "should_update")])
+    else:
+        _same_source(port("db.analytics"), orig("db.analytics"),
+                     ["write_gauntlet_result", "read_historical_slots", "write_historical_slot"])
+        _same_source(port("db.core"), orig("db.core"),
+                     ["connect", "fetch_all", "fetch_one", "execute", "write_row", "insert"])
+        _same_source(port("db.telemetry"), orig("db.telemetry"),
+                     ["read_training_state", "update_training_progress"])
+
+
+def test_flat_action_tables_equal_the_originals():
+    from keisei_tpu.env import vec_env as jax_vec_env
+    from keisei_tpu_torch.env import vec_env
+
+    for name in ("SPATIAL_TO_FLAT", "FLAT_TO_SPATIAL"):
+        assert _equal(getattr(vec_env, name), getattr(jax_vec_env, name)), name
+
+
+def test_dynamic_update_path_raises_until_the_tournament_is_ported(tmp_path):
+    from keisei_tpu_torch.league.config import DynamicConfig
+    from keisei_tpu_torch.league.dynamic_trainer import DynamicTrainer, _make_update_fn
+    from keisei_tpu_torch.league.store import OpponentStore
+
+    store = OpponentStore(str(tmp_path / "l.db"), str(tmp_path / "l"), device="cpu")
+    trainer = DynamicTrainer(store, None, DynamicConfig())
+    for call in (lambda: trainer.record_rollout(1, None, "a"), lambda: trainer._build_batch(1),
+                 lambda: trainer.maybe_update(None), lambda: trainer._update_inner(None, 0),
+                 _make_update_fn):
+        with pytest.raises(NotImplementedError, match="tournament"):
+            call()
+    trainer._match_counts[7] = 4
+    assert trainer.should_update(7) and not trainer.should_update(8)
+    trainer.retain_only({8})
+    assert not trainer.should_update(7)

@@ -1,6 +1,6 @@
 """Guards of the port: no JAX and nothing of the JAX package anywhere in
-keisei_tpu_torch or chip_smoke.py, no silent device fallback, and clear
-refusals for what is not ported yet."""
+keisei_tpu_torch or chip_smoke.py (the league's modules included), no
+silent device fallback, and clear refusals for what is not ported yet."""
 
 import ast
 import subprocess
@@ -86,6 +86,27 @@ def test_engine_defaults_to_the_card_and_raises_without_one(monkeypatch, what):
     assert built.device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("what", ["VecEnv", "OpponentStore"])
+def test_vec_env_and_league_store_default_to_the_card(monkeypatch, tmp_path, what):
+    """The host shim and the league's store (where league weights and the
+    gauntlet's games live) resolve to the card when built without a
+    device, and raise on a machine without CUDA."""
+    from keisei_tpu_torch.env.vec_env import VecEnv
+    from keisei_tpu_torch.league.store import OpponentStore
+
+    def build(**kw):
+        if what == "VecEnv":
+            return VecEnv(2, 16, **kw)
+        return OpponentStore(str(tmp_path / "l.db"), str(tmp_path / "l"), **kw)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
+    built = build(device="cpu")
+    device = built._core.device if what == "VecEnv" else built.device
+    assert device == torch.device("cpu")
+
+
 def test_cuda_kernels_refuse_cpu_fallback_on_other_devices():
     from keisei_tpu_torch.ops.conv3x3 import conv3x3_hwbc
 
@@ -110,10 +131,29 @@ def test_int8_forward_not_yet_ported(tmp_path):
     assert isinstance(trainer(32)._rollout_forward_fn("int8"), QuantizedForward)
 
 
-def test_league_mode_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        config_from_dict({"model": TINY_MODEL, "league": {"opponents_per_epoch": 2}})
-    assert config_from_dict({"model": TINY_MODEL, "league": {"enabled": False}})
+def test_league_mode_not_yet_ported(tmp_path):
+    """League mode is ported: an enabled [league] builds a league trainer.
+    What is not ported yet still refuses: the tournament (in-process or
+    sidecar), a league over several devices, and the fused and int8
+    rollout forwards (the reference refuses those too)."""
+    league = {"opponents_per_epoch": 2, "tournament_enabled": False,
+              "storage": {"league_dir": str(tmp_path / "league")}}
+    training = {"num_games": 4, "checkpoint_dir": str(tmp_path / "ck")}
+    trainer = SelfPlayTrainer(config_from_dict({"model": TINY_MODEL, "training": training,
+                                                "league": league}), device="cpu")
+    assert trainer.league_enabled and trainer.store.pool_size() == 1
+    with pytest.raises(NotImplementedError, match="tournament_enabled"):
+        config_from_dict({"model": TINY_MODEL,
+                          "league": {**league, "tournament_enabled": True}})
+    with pytest.raises(NotImplementedError, match="several devices"):
+        config_from_dict({"model": TINY_MODEL, "league": league,
+                          "distributed": {"num_devices": 2}})
+    with pytest.raises(ValueError, match="not supported in league mode"):
+        SelfPlayTrainer(config_from_dict({
+            "model": TINY_MODEL, "league": league,
+            "training": {**training, "rollout_forward": "fused"}}), device="cpu")
+    disabled = config_from_dict({"model": TINY_MODEL, "league": {"enabled": False}})
+    assert not disabled.league.enabled
 
 
 def test_multi_device_not_yet_ported(tmp_path):

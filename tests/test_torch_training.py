@@ -1,6 +1,7 @@
 """The port's training core against the JAX package: GAE and its overrides,
 value categories, masked log-softmax / entropy, the entropy schedule, and
-one full PPO update fed the same trajectory and the same minibatches."""
+one full PPO update fed the same trajectory and the same minibatches, on
+a self-play trajectory and on a sparse league one (sample weights)."""
 
 import jax
 import jax.numpy as jnp
@@ -172,3 +173,54 @@ def test_ppo_update_rejects_empty_minibatch():
                                P.make_optimizer(tmodel, cfg))
     with pytest.raises(ValueError, match="exceeds"):
         update(traj, torch.from_numpy(nv), None, 0.01)
+
+
+def test_weighted_ppo_update_matches_jax():
+    """The league branch of the update: a sparse trajectory (`valid`, a
+    third of the slots empty) through masked GAE, the weighted advantage
+    normalisation and the sample-weighted losses; 1 epoch x 2 minibatches
+    with JAX's permutation handed over, at the self-play update's
+    tolerances (rtol 1e-3, atol 2e-6)."""
+    jmodel, _ = jax_build_model("se_resnet", {**TINY, "dtype": jnp.float32})
+    variables = jax.device_get(jmodel.init(jax.random.key(0), jnp.zeros((2, 50, 9, 9)),
+                                           train=False))
+    cfg_kw = dict(batch_size=16, epochs_per_batch=1, learning_rate=2e-4, lambda_score=0.1,
+                  score_blend_alpha=0.1)
+    jcfg, tcfg = JP.KataGoPPOParams(**cfg_kw), P.KataGoPPOParams(**cfg_kw)
+    adapter_kw = dict(lambda_value=1.5, lambda_score=0.1, score_blend_alpha=0.1)
+    data, nv = _trajectory(6)
+    valid = np.random.default_rng(7).random(data["rewards"].shape) < 0.67
+    for name in ("rewards", "score_targets"):
+        data[name] = np.where(valid, data[name], 0.0).astype(np.float32)
+    for name in ("dones", "terminated"):
+        data[name] = data[name] & valid
+    data["value_cats"] = np.where(valid, data["value_cats"], -1).astype(np.int32)
+    data["next_value_override"] = np.where(data["dones"] & ~data["terminated"],
+                                           data["next_value_override"], np.nan)
+    data["valid"] = valid
+    jopt = JP.make_optimizer(jcfg)
+    state = JP.TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
+                          opt_state=jopt.init(variables["params"]), step=jnp.int32(0))
+    key = jax.random.key(5)
+    with jax.disable_jit():  # op by op, as the self-play update above
+        new_state, jm = JP.make_ppo_update(jmodel, JaxAdapter(**adapter_kw), jcfg, jopt)(
+            state, JP.Trajectory(**{k: jnp.asarray(v) for k, v in data.items()}),
+            jnp.asarray(nv), key, 0.01)
+    _, k = jax.random.split(key)
+    perm = torch.from_numpy(np.asarray(jax.random.permutation(k, valid.size)).astype(np.int64))
+
+    tmodel, _ = build_model("se_resnet", {**TINY, "dtype": "float32"})
+    tmodel.load_state_dict(flax_to_torch(variables["params"], variables["batch_stats"]))
+    ttraj = P.Trajectory(**{k: torch.from_numpy(np.asarray(v)) for k, v in data.items()})
+    tm = P.make_ppo_update(tmodel, get_value_adapter("katago", **adapter_kw), tcfg,
+                           P.make_optimizer(tmodel, tcfg))(
+        ttraj, torch.from_numpy(nv), None, 0.01, perms=[perm])
+
+    for name in ("policy_loss", "value_loss", "score_loss", "entropy", "gradient_norm"):
+        np.testing.assert_allclose(tm[name], float(jm[name]), rtol=1e-3, atol=1e-6,
+                                   err_msg=name)
+    want = flax_to_torch(jax.device_get(new_state.params), jax.device_get(new_state.batch_stats))
+    sd = tmodel.state_dict()
+    for name, v in want.items():
+        np.testing.assert_allclose(sd[name].numpy(), v.numpy(), rtol=1e-3, atol=2e-6,
+                                   err_msg=name)
