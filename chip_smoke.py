@@ -11,7 +11,10 @@ for the conv on unpadded planes): each kernel against its plain version at a
 small size, then the scripts at their own sizes. Phase 8 trains league mode
 (configs/katago-league.toml at full width, the cuts printed: the learner
 against K frozen opponents from the tiered pool, with the maintenance after
-each epoch) and drives the VecEnv host shim; no kernel lies on that path.
+each epoch) and drives the VecEnv host shim; phase 9 plays the league
+tournament (an in-process round at full width with Dynamic updates, the
+sidecar dispatcher and worker, and the round inside league training); no
+kernel lies on those two paths.
 The 3x3 conv is checked on every route (wgmma fed by TMA for Cin % 64 == 0,
 the same kernel after a zero pad of the channels for the 50 observation
 planes, mma.sync with 1 / 2 / 4 boards per CTA), with the per-route launch
@@ -329,6 +332,52 @@ def league_phase(dev, card_line: str) -> None:
         "vec_env_steps_per_s": round(vec["steps_per_s"], 1),
         "phase_s": round(time.monotonic() - t0, 1)}
     print(f"phase8 league {json.dumps(summary)}")
+
+
+def tournament_phase(dev, card_line: str) -> None:
+    """The league tournament on the card (scripts/tournament_smoke.py): one
+    in-process round of configs/katago-league.toml's league at full width
+    (b40c256, bf16 snapshots, parallel_matches 4 x envs_per_match 16) on a
+    store of random-weight entries (2 Dynamic training, 1 Recent, 1
+    Frontier) with a Dynamic update after every match; the sidecar mode
+    (dispatcher, then one worker batch); the wiring (league epochs of
+    SelfPlayTrainer at 8 blocks, N=48, K=3, with a round due). The cuts
+    are printed; the script raises if a check fails. No kernel lies on this
+    path: the pool's stacked forward and the Dynamic update are eager
+    torch, as the reference's are XLA's."""
+    from keisei_tpu_torch.scripts import league_smoke, tournament_smoke
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        r = tournament_smoke.run_round(dev, os.path.join(tmp, "round"), max_ply=64,
+                                       chunk_steps=64, label="phase9 round")
+        round_peak = torch.cuda.max_memory_allocated() / 1e9
+        s = tournament_smoke.run_sidecar(dev, os.path.join(tmp, "sidecar"), max_ply=64,
+                                         label="phase9 sidecar")
+        os.makedirs(os.path.join(tmp, "wiring"))
+        w = league_smoke.run_league(dev, os.path.join(tmp, "wiring"), epochs=2, games=48,
+                                    steps=16, opponents=3, max_ply=64, blocks=8,
+                                    label="phase9 wiring",
+                                    tournament={"min_epoch": 1, "max_ply": 64,
+                                                "chunk_steps": 64})
+    st = r["stats"]
+    ok = [u for u in r["updates"] if u["ok"]]
+    summary = {
+        "card": card_line, "P": r["P"], "E": r["E"], "max_ply": 64, "chunk_steps": 64,
+        "round_s": round(r["wall_s"], 3), "phase_s": st["phase_s"],
+        "games": st["total_games"], "plies": st["total_plies"],
+        "games_per_min": round(st["games_per_min"], 1),
+        "pairings": [st["pairings_completed"], st["pairings_requested"]],
+        "dynamic_updates": len(ok), "dynamic_update_s": [round(u["s"], 3) for u in ok],
+        "dynamic_update_peak_gb": [round(u["peak_gb"], 2) for u in ok],
+        "round_peak_gb": round(round_peak, 2),
+        "ply_ms": {k: round(v, 3) for k, v in r["ply_ms"].items()},
+        "worker_s_per_pairing": round(s["s_per_pairing"], 3),
+        "wiring_round": w["counts"].get("tournament"),
+        "wiring_maintenance_s": {k: round(v, 3) for k, v in w["maintenance_s"].items()},
+        "phase9_s": round(time.monotonic() - t0, 1)}
+    print(f"phase9 tournament {json.dumps(summary)}")
 
 
 def main() -> int:
@@ -868,6 +917,9 @@ def main() -> int:
 
     # -- phase 8: league training on the card --------------------------------------
     league_phase(dev, card_line)
+
+    # -- phase 9: the league tournament on the card ----------------------------------
+    tournament_phase(dev, card_line)
 
     sources = {
         PADDED_STEM: ("keisei_tpu_torch/csrc/conv3x3_wgmma.cu", "keisei_tpu/ops/conv3x3.py:69"),

@@ -78,6 +78,19 @@ class MatchRollout:
     a_color: torch.Tensor  # (N,) int32 — seat assignment for side attribution
 
 
+def host_rollout(rollout: MatchRollout) -> MatchRollout:
+    """The small (T, N) fields of a rollout as numpy arrays on the host (one
+    copy each), the form features.extract_game_features reads; obs and
+    legal masks are left out."""
+    def host(t):
+        return t.cpu().numpy()
+
+    return MatchRollout(obs=None, actions=host(rollout.actions), legal_masks=None,
+                        rewards=host(rollout.rewards), dones=host(rollout.dones),
+                        captured=host(rollout.captured), term_reason=host(rollout.term_reason),
+                        mover_color=host(rollout.mover_color), a_color=host(rollout.a_color))
+
+
 def _make_chunk(env_core: EnvCore, model_a, model_b, chunk_steps: int, temperature: float):
     N, C = env_core.num_envs, env_core.num_channels
 

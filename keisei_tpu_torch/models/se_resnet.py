@@ -176,3 +176,80 @@ class SEResNetModel(nn.Module):
             value_logits=value,
             score_lead=score,
         )
+
+
+# -- G weight sets in one forward ---------------------------------------------------
+#
+# The concurrent match pool plays 2P pairings' sides at once. torch.func.vmap
+# of functional_call over the stacked state dicts is refused here: under vmap
+# the autocast region of SEResNetModel.forward does not cast (a conv then
+# meets f32 boards and bf16 weights). So the stacked forward is written out:
+# activations in an (E, G*C, 9, 9) layout, every conv one grouped conv
+# (groups = G) over the G weight sets, every Dense one batched matmul, and
+# each op in the dtype autocast gives it in the eager forward (convs and
+# Dense in `params.dtype`, BatchNorm and the pool's statistics in f32).
+
+
+def _gconv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, pad: int) -> torch.Tensor:
+    """Grouped conv of (E, G*Cin, 9, 9) by G stacked (Cout, Cin, k, k) kernels."""
+    G = w.shape[0]
+    return F.conv2d(x, w.reshape(-1, *w.shape[2:]).to(x.dtype),
+                    None if b is None else b.reshape(-1).to(x.dtype), padding=pad, groups=G)
+
+
+def _gbn(x: torch.Tensor, sd: dict, name: str) -> torch.Tensor:
+    """FlaxBatchNorm's eval path over G stacked statistics."""
+    xf = x.float()
+    mean = sd[f"{name}.running_mean"].float().reshape(-1)
+    var = sd[f"{name}.running_var"].float().reshape(-1)
+    mul = torch.rsqrt(var + BN_EPS) * sd[f"{name}.weight"].float().reshape(-1)
+    y = ((xf - mean[None, :, None, None]) * mul[None, :, None, None]
+         + sd[f"{name}.bias"].float().reshape(-1)[None, :, None, None])
+    return y.to(x.dtype)
+
+
+def _gdense(x: torch.Tensor, sd: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """(E, G, in) through G stacked Linear layers -> (E, G, out) in `dtype`."""
+    w, b = sd[f"{name}.weight"].to(dtype), sd[f"{name}.bias"].to(dtype)
+    y = torch.baddbmm(b[:, None, :], x.to(dtype).transpose(0, 1), w.transpose(1, 2))
+    return y.transpose(0, 1)
+
+
+def _gpool(x: torch.Tensor, G: int) -> torch.Tensor:
+    """global_pool per weight set: (E, G*C, 9, 9) -> (E, G, 3C) f32."""
+    E = x.shape[0]
+    xf = x.float().reshape(E, G, -1, 81)
+    mean = xf.mean(dim=-1)
+    amax = xf.amax(dim=-1)
+    var = ((xf - mean[..., None]) ** 2).mean(dim=-1)
+    return torch.cat([mean, amax, torch.sqrt(var + 1e-10)], dim=-1)
+
+
+def stacked_policy_logits(cfg: SEResNetParams, sd: dict, obs: torch.Tensor) -> torch.Tensor:
+    """Policy logits of G weight sets at once.
+
+    sd: a state dict of SEResNetModel with every tensor stacked on a
+    leading G (any float dtype); obs: (G, E, obs_channels, 81) boards, set g
+    for weight set g. Returns (G, E, 9*9*139) f32 logits, each set's as
+    `SEResNetModel(...)(obs[g]).policy_logits.reshape(E, -1)` computes them
+    (to the rounding of the compute dtype)."""
+    G, E = obs.shape[:2]
+    dt = cfg.dtype
+    x = obs.transpose(0, 1).reshape(E, G * cfg.obs_channels, 9, 9).to(dt)
+    x = F.relu(_gbn(_gconv(x, sd["input_conv.weight"], None, 1), sd, "input_bn"))
+    for i in range(cfg.num_blocks):
+        p = f"block{i}"
+        out = F.relu(_gbn(_gconv(x, sd[f"{p}.conv1.weight"], None, 1), sd, f"{p}.bn1"))
+        g = _gdense(F.relu(_gdense(_gpool(x, G), sd, f"{p}.gp_fc1", dt)), sd, f"{p}.gp_fc2", dt)
+        out = out + g.reshape(E, -1)[:, :, None, None].to(out.dtype)
+        out = _gbn(_gconv(out, sd[f"{p}.conv2.weight"], None, 1), sd, f"{p}.bn2")
+        mean = out.float().mean(dim=(2, 3)).reshape(E, G, -1)
+        se = _gdense(F.relu(_gdense(mean, sd, f"{p}.se_fc1", dt)), sd, f"{p}.se_fc2", dt)
+        scale, shift = se.chunk(2, dim=-1)
+        out = (out * torch.sigmoid(scale).reshape(E, -1)[:, :, None, None]
+               + shift.reshape(E, -1)[:, :, None, None])
+        x = F.relu(out + x)
+    pol = F.relu(_gbn(_gconv(x, sd["policy_conv1.weight"], None, 0), sd, "policy_bn1"))
+    pol = _gconv(pol, sd["policy_conv2.weight"], sd["policy_conv2.bias"], 0)
+    pol = pol.float().reshape(E, G, SPATIAL_MOVE_TYPES, 9, 9).permute(1, 0, 3, 4, 2)
+    return pol.reshape(G, E, -1)

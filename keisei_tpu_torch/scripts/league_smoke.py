@@ -1,9 +1,10 @@
 """League mode end to end through SelfPlayTrainer, with its checks: the
-league configuration (configs/katago-league.toml) at its full width with
-the cuts below, a few epochs of the learner against K frozen opponents
-from the tiered pool and the maintenance after each (results and Elo,
-learner snapshots, tier reviews, the historical library, the gauntlet),
-then the VecEnv host shim driven with random legal moves.
+league configuration (configs/katago-league.toml, its in-process
+tournament on) at its full width with the cuts below, a few epochs of the
+learner against K frozen opponents from the tiered pool and the
+maintenance after each (results and Elo, learner snapshots, tier reviews,
+the historical library, the gauntlet, a tournament round when one is
+due), then the VecEnv host shim driven with random legal moves.
 
     python -m keisei_tpu_torch.scripts.league_smoke [--device cuda] [--epochs 3]
         [--games 64] [--steps 16] [--opponents 4] [--max-ply 64] [--batch 256] [--blocks N]
@@ -11,9 +12,11 @@ then the VecEnv host shim driven with random legal moves.
 prints the cuts, one line per epoch, the maintenance seconds per phase and
 a `league` summary line; raises if a check fails: parity mismatches,
 non-finite losses, parameters that did not move, fewer than three pool
-entries with weight files (after 2+ epochs), no gauntlet or Elo rows, or a tensor of the
-slice off the requested device. chip_smoke.py phase 8 calls `run_league`
-and `drive_vec_env`.
+entries with weight files (after 2+ epochs), no gauntlet or Elo rows, a
+tournament round that was asked for (`tournament=`) and did not complete,
+or a tensor of the slice off the requested device. chip_smoke.py phase 8
+calls `run_league` and `drive_vec_env`; phase 9 calls `run_league` with a
+round (scripts/tournament_smoke.py).
 """
 
 from __future__ import annotations
@@ -39,20 +42,20 @@ CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, os.
 
 
 def league_config(tmp: str, *, games: int, steps: int, opponents: int, max_ply: int,
-                  batch: int = 256, blocks: int | None = None,
-                  every_epoch: bool = True) -> tuple[Config, list[str]]:
+                  batch: int = 256, blocks: int | None = None, every_epoch: bool = True,
+                  extra: dict | None = None) -> tuple[Config, list[str]]:
     """configs/katago-league.toml with the smoke run's cuts, and the cuts
     as `section.key = value` strings. every_epoch=False keeps the config's
-    maintenance cadences (snapshots, history, gauntlet)."""
+    maintenance cadences (snapshots, history, gauntlet); `extra` adds cuts
+    of its own (`section.key` -> value)."""
     with open(CONFIG, "rb") as f:
         raw = tomllib.load(f)
     tr, lg = raw["training"], raw["league"]
     cuts = {
-        "league.tournament_enabled": False,  # the tournament is the next slice
         "training.num_games": games,
         "training.steps_per_epoch": steps,
         "league.opponents_per_epoch": opponents,
-        "training.max_ply": max_ply,  # so that gauntlet games end
+        "training.max_ply": max_ply,
         "training.algorithm_params.batch_size": batch,  # (T/2 + 1) * N = 576 at N=64
         "training.algorithm_params.epochs_per_batch": 1,
         "training.checkpoint_interval": 10**9,
@@ -67,6 +70,7 @@ def league_config(tmp: str, *, games: int, steps: int, opponents: int, max_ply: 
         })
     if blocks is not None:
         cuts["model.params.num_blocks"] = blocks
+    cuts.update(extra or {})
     for key, value in cuts.items():
         section = raw
         *path, leaf = key.split(".")
@@ -96,17 +100,30 @@ def _tensors(obj):
 
 def run_league(device: torch.device | str, tmp: str, *, epochs: int = 3, games: int = 64,
                steps: int = 16, opponents: int = 4, max_ply: int = 64, batch: int = 256,
-               blocks: int | None = None, label: str = "league") -> dict:
+               blocks: int | None = None, tournament: dict | None = None,
+               label: str = "league") -> dict:
     """`epochs` league epochs through SelfPlayTrainer.run, checked. Returns
     the per-epoch metrics, the maintenance seconds per phase and what was
-    counted in the league's database."""
+    counted in the league's database.
+
+    The gauntlet's games end at `max_ply` (cut from its 512). `tournament`
+    sets attributes of the trainer's LeagueTournament (min_epoch, max_ply,
+    chunk_steps) so that a round is due and short; the run must then
+    complete at least one round."""
     device = torch.device(device)
-    cfg, cuts = league_config(tmp, games=games, steps=steps, opponents=opponents,
-                              max_ply=max_ply, batch=batch, blocks=blocks)
-    for cut in cuts:
-        print(f"{label} cut {cut}")
+    cfg, cuts = league_config(
+        tmp, games=games, steps=steps, opponents=opponents, max_ply=max_ply, batch=batch,
+        blocks=blocks,
+        extra=None if tournament is None else {"league.tournament_interval_epochs": 1})
     seen, rollouts = [], []
     trainer = SelfPlayTrainer(cfg, device=device, metrics_sink=seen.append)
+    trainer.gauntlet.max_ply = max_ply  # so that gauntlet games end
+    cuts.append(f"gauntlet.max_ply = {max_ply}")
+    for key, value in (tournament or {}).items():
+        setattr(trainer.tournament, key, value)
+        cuts.append(f"tournament.{key} = {value}")
+    for cut in cuts:
+        print(f"{label} cut {cut}")
     real = trainer._rollout
 
     def rollout(*args, **kwargs):
@@ -152,10 +169,18 @@ def run_league(device: torch.device | str, tmp: str, *, epochs: int = 3, games: 
               "gauntlet_rows": len(data["gauntlet_results"]),
               "elo_rows": len(db.read_elo_history(db_path)),
               "result_rows": len(data["results"])}
+    round_stats = db.read_tournament_stats(db_path)
+    if round_stats is not None:
+        counts["tournament"] = {k: round_stats[k] for k in (
+            "pairings_requested", "pairings_completed", "total_games", "round_duration_s")}
     print(f"{label} pool {counts}")
     if (len(on_disk) < min(3, epochs + 1) or counts["gauntlet_rows"] < 1
             or counts["elo_rows"] < 1):
         raise AssertionError(f"{label}: league bookkeeping missing: {counts}")
+    if tournament is not None and (
+            round_stats is None or round_stats["pairings_completed"] < 1
+            or round_stats["pairings_completed"] != round_stats["pairings_requested"]):
+        raise AssertionError(f"{label}: no complete tournament round: {round_stats}")
     slice_tensors = [t for _, _, ts in rollouts for t in ts]
     slice_tensors += list(_tensors([trainer.env_carry, trainer.learner_color,
                                     trainer._cohort_vars, list(trainer.store._cache.values())]))

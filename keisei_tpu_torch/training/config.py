@@ -5,7 +5,7 @@ defaults and validation. Unknown keys are rejected per section; the
 torch-only reference knobs (use_amp, compile_mode, compile_dynamic) are
 accepted and ignored, as in the JAX package. `[league]` builds a
 LeagueConfig (league/config.py); an enabled league refuses what is not
-ported yet: `tournament_enabled = true` and a league over several devices.
+ported yet: a league over several devices.
 """
 
 from __future__ import annotations
@@ -144,11 +144,6 @@ def config_from_dict(raw: dict, source: str = "<dict>") -> Config:
     distributed = _build(DistributedConfig, raw.get("distributed", {}), "distributed")
     league = league_config_from_dict(raw["league"]) if "league" in raw else None
     if league is not None and league.enabled:
-        if league.tournament_enabled:
-            raise NotImplementedError(
-                f"{source}: [league] tournament_enabled = true is not yet ported to "
-                "keisei_tpu_torch (the in-process tournament and the sidecar workers "
-                "come in the next slice); set it to false")
         if distributed.num_devices not in (0, 1):
             raise NotImplementedError(
                 f"{source}: league mode over several devices is not yet ported to "

@@ -8,13 +8,15 @@ rollout (the learner against K frozen opponents from the tiered pool,
 training/league_rollout.py) and each epoch ends with league maintenance:
 Elo and results, learner snapshots into the pool, tier reviews, the
 historical library and the gauntlet, on a worker thread by default
-(`league.async_maintenance`).
+(`league.async_maintenance`). With `tournament_enabled`, the maintenance
+also plays tournament rounds (in_process: league/tournament.py, on the
+trainer's card or `tournament_device`) or enqueues them for sidecar
+workers (league/worker.py).
 
 Run:  python -m keisei_tpu_torch.training.loop --config configs/katago-b40c256.toml \
           --device cuda
 
-Multi-device training, the league's tournament and its sidecar workers
-are not ported yet and raise.
+Multi-device training is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ from ..league.league_ops import record_epoch_results, stack_cohort_variables
 from ..league.scheduler import MatchScheduler, PriorityScorer, build_match_class_weights
 from ..league.store import OpponentStore, Role
 from ..league.tiers import TieredPool
+from ..league.tournament import LeagueTournament, TournamentDispatcher
 from ..models.registry import build_model, get_model_contract
-from ..utils.device import resolve_device
+from ..utils.device import parse_device, resolve_device
 from .checkpoint import load_checkpoint, load_meta, prune_checkpoints, save_checkpoint
 from .config import Config
 from .league_rollout import compact_supported, make_league_rollout, parity_colors
@@ -177,8 +180,9 @@ class SelfPlayTrainer:
     # -- league wiring -----------------------------------------------------------
 
     def _init_league(self) -> None:
-        """Opponent pool, tiers, scheduler, historical library and
-        gauntlet, and the per-env learner colors."""
+        """Opponent pool, tiers, scheduler, Dynamic trainer, historical
+        library and gauntlet, the tournament (or its dispatcher), and the
+        per-env learner colors."""
         lc = self.config.league
         tc = self.config.training
         n = tc.num_games
@@ -199,17 +203,31 @@ class SelfPlayTrainer:
         self.pool = TieredPool(self.store, lc)
         self.scorer = PriorityScorer(lc.priority, build_match_class_weights(lc.scheduler))
         self.scheduler = MatchScheduler(lc.scheduler, self.scorer)
+        # Dynamic updates ride tournament rounds: on the tournament's card
+        # (tournament_device, else the trainer's); a bad spec fails here
+        tournament_device = parse_device(lc.tournament_device, default=self.device)
         self.dyn_trainer = DynamicTrainer(
             self.store, self.model, lc.dynamic,
             learner_lr=self.config.algorithm_params.learning_rate,
-            contract=get_model_contract(self.config.model.architecture))
+            contract=get_model_contract(self.config.model.architecture),
+            device=tournament_device)
         self.dyn_trainer.architecture = self.config.model.architecture
         self.historical = HistoricalLibrary(self.store, lc.history)
-        # the gauntlet's games end at the training max_ply (the reference's
-        # gauntlet keeps its own default of 512)
         self.gauntlet = HistoricalGauntlet(self.store, lc.gauntlet,
-                                           historical_k=lc.elo.historical_k,
-                                           max_ply=tc.max_ply)
+                                           historical_k=lc.elo.historical_k)
+        self.tournament = None
+        self.dispatcher = None
+        if lc.tournament_enabled:
+            if lc.tournament_mode == "in_process":
+                self.tournament = LeagueTournament(
+                    self.store, lc, self.scheduler, self.scorer, self.dyn_trainer,
+                    heartbeat=lambda: self.observer.heartbeat(
+                        self.epoch, self.epoch * self.T, "tournament"),
+                    learner_id_fn=lambda: self.learner_entry_id,
+                    device=tournament_device)
+            else:
+                self.dispatcher = TournamentDispatcher(self.store, lc, self.scheduler,
+                                                       self.scorer)
 
         # bootstrap: the pool must never be empty
         self.pool.bootstrap_from_flat_pool(self.epoch)
@@ -362,7 +380,7 @@ class SelfPlayTrainer:
             architecture=self.config.model.architecture, generator=self.generator,
             extra_meta={
                 "learning_rate": get_learning_rate(self.optimizer),
-                "model_params": {k: str(v) for k, v in self.config.model.params.items()},
+                "model_params": dict(self.config.model.params),
                 "lr_plateau_best": self.lr_sched.best,
                 "lr_plateau_bad_epochs": self.lr_sched.bad_epochs,
             })
@@ -432,7 +450,7 @@ class SelfPlayTrainer:
 
     def _league_epoch_end(self, league_stats) -> None:
         """Post-epoch league bookkeeping: Elo, snapshots, reviews,
-        historical refresh and the gauntlet.
+        historical refresh, the gauntlet and the tournament.
 
         With league.async_maintenance (default) only the weights copy
         stays here, on the training thread, when a snapshot is due: a
@@ -466,6 +484,20 @@ class SelfPlayTrainer:
             while len(self._maint_futures) > 1:
                 self._maint_futures.popleft().result()
         self._maint_futures.append(self._maint_executor.submit(self._league_maintenance, *args))
+        # a round on the learner's own card blocks training
+        # (tournament_overlap="auto"): overlapped, its launches and host
+        # syncs would interleave with the next epochs' on one device
+        if (self.tournament is not None and self.tournament.is_due(epoch)
+                and self._tournament_blocks()):
+            self.drain_maintenance()
+
+    def _tournament_blocks(self) -> bool:
+        mode = self.config.league.tournament_overlap
+        if mode == "always":
+            return False
+        if mode == "never":
+            return True
+        return self.tournament.device == self.device
 
     def _league_maintenance(self, epoch: int, cohort: list, learner_id: int,
                             league_stats, vars_copy) -> None:
@@ -511,6 +543,23 @@ class SelfPlayTrainer:
             if self.gauntlet.is_due(epoch):
                 self.gauntlet.run_gauntlet(epoch, self.store.get_entry(self.learner_entry_id))
             mark("historical_gauntlet")
+            if self.tournament is not None and self.tournament.is_due(epoch):
+                # skip rounds that went stale in a backlog: training has
+                # already queued (or will queue) a fresher one
+                if self.epoch - epoch >= lc.tournament_interval_epochs:
+                    logger.warning("skipping stale tournament round for epoch %d "
+                                   "(training is at %d)", epoch, self.epoch)
+                else:
+                    self.observer.heartbeat(epoch, epoch * self.T, "tournament")
+                    stats = self.tournament.run_round(epoch)
+                    # a firing Elo-ceiling alert means the Frontier anchors
+                    # are stale now: review at once instead of on the calendar
+                    if (stats.get("elo_ceiling_streak", 0)
+                            >= self.tournament.ELO_CEILING_STREAK):
+                        self.pool.maybe_review_frontier(epoch, force=True)
+            mark("tournament")
+            if self.dispatcher is not None:
+                self.dispatcher.enqueue_round(epoch)
         except Exception:
             logger.exception("league epoch maintenance failed; continuing")
 

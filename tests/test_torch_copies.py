@@ -125,7 +125,9 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("path", ["league/tiers.py", "league/scheduler.py",
-                                  "league/historical.py", "db/league_tables.py"])
+                                  "league/historical.py", "db/league_tables.py",
+                                  "league/features.py", "league/style.py", "db/queue.py",
+                                  "db/analytics.py"])
 def test_league_copies_are_byte_identical(path):
     """Framework-free modules copied whole: their relative imports resolve to
     the port's own store, match and db, so not even an import line differs."""
@@ -207,12 +209,10 @@ def test_league_trimmed_copies_keep_the_originals_source(which):
                      ["record_epoch_results"])
     elif which == "dynamic_trainer":
         _same_source(port("league.dynamic_trainer"), orig("league.dynamic_trainer"), [
-            f"DynamicTrainer.{m}" for m in ("disabled_entries", "retain_only",
-                                            "_rate_limited", "_globally_disabled",
-                                            "begin_round", "should_update")])
+            "_plan_chunks", *(f"DynamicTrainer.{m}" for m in (
+                "disabled_entries", "retain_only", "_rate_limited", "_globally_disabled",
+                "begin_round", "should_update", "maybe_update"))])
     else:
-        _same_source(port("db.analytics"), orig("db.analytics"),
-                     ["write_gauntlet_result", "read_historical_slots", "write_historical_slot"])
         _same_source(port("db.core"), orig("db.core"),
                      ["connect", "fetch_all", "fetch_one", "execute", "write_row", "insert"])
         _same_source(port("db.telemetry"), orig("db.telemetry"),
@@ -228,18 +228,29 @@ def test_flat_action_tables_equal_the_originals():
 
 
 def test_dynamic_update_path_raises_until_the_tournament_is_ported(tmp_path):
+    """The tournament is ported, and with it the Dynamic update path: none
+    of record_rollout, _build_batch, maybe_update, _update_inner or
+    _make_update_fn raises NotImplementedError any more; the gates and the
+    cache sweep behave as before."""
     from keisei_tpu_torch.league.config import DynamicConfig
     from keisei_tpu_torch.league.dynamic_trainer import DynamicTrainer, _make_update_fn
     from keisei_tpu_torch.league.store import OpponentStore
 
     store = OpponentStore(str(tmp_path / "l.db"), str(tmp_path / "l"), device="cpu")
     trainer = DynamicTrainer(store, None, DynamicConfig())
-    for call in (lambda: trainer.record_rollout(1, None, "a"), lambda: trainer._build_batch(1),
-                 lambda: trainer.maybe_update(None), lambda: trainer._update_inner(None, 0),
-                 _make_update_fn):
-        with pytest.raises(NotImplementedError, match="tournament"):
-            call()
+    assert trainer._build_batch(1) is None
+    model = _tiny_model()
+    assert callable(_make_update_fn(model, DynamicConfig(), 1e-4))
+    with pytest.raises(NotImplementedError, match="scalar-contract"):
+        _make_update_fn(model, DynamicConfig(), 1e-4, contract="scalar")
     trainer._match_counts[7] = 4
     assert trainer.should_update(7) and not trainer.should_update(8)
     trainer.retain_only({8})
     assert not trainer.should_update(7)
+
+
+def _tiny_model():
+    from keisei_tpu_torch.models.registry import build_model
+
+    return build_model("se_resnet", {"num_blocks": 1, "channels": 16,
+                                     "global_pool_channels": 8, "se_reduction": 4})[0]

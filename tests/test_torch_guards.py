@@ -132,19 +132,31 @@ def test_int8_forward_not_yet_ported(tmp_path):
 
 
 def test_league_mode_not_yet_ported(tmp_path):
-    """League mode is ported: an enabled [league] builds a league trainer.
-    What is not ported yet still refuses: the tournament (in-process or
-    sidecar), a league over several devices, and the fused and int8
-    rollout forwards (the reference refuses those too)."""
+    """League mode is ported, its tournament included: an enabled [league]
+    builds a league trainer, and `tournament_enabled = true` builds its
+    in-process tournament or, with `tournament_mode = "sidecar"`, its
+    dispatcher. What is not ported yet still refuses: a league over several
+    devices, and the fused and int8 rollout forwards in league mode (the
+    reference refuses those too)."""
+    from keisei_tpu_torch.league.tournament import LeagueTournament, TournamentDispatcher
+
     league = {"opponents_per_epoch": 2, "tournament_enabled": False,
               "storage": {"league_dir": str(tmp_path / "league")}}
     training = {"num_games": 4, "checkpoint_dir": str(tmp_path / "ck")}
     trainer = SelfPlayTrainer(config_from_dict({"model": TINY_MODEL, "training": training,
                                                 "league": league}), device="cpu")
     assert trainer.league_enabled and trainer.store.pool_size() == 1
-    with pytest.raises(NotImplementedError, match="tournament_enabled"):
-        config_from_dict({"model": TINY_MODEL,
-                          "league": {**league, "tournament_enabled": True}})
+    assert trainer.tournament is None and trainer.dispatcher is None
+    for mode, cls in (("in_process", LeagueTournament), ("sidecar", TournamentDispatcher)):
+        on = {**league, "tournament_enabled": True, "tournament_mode": mode,
+              "storage": {"league_dir": str(tmp_path / mode)}}
+        built = SelfPlayTrainer(config_from_dict({"model": TINY_MODEL, "training": training,
+                                                  "league": on}), device="cpu")
+        assert isinstance(built.tournament if mode == "in_process" else built.dispatcher, cls)
+    # a tournament_device the machine lacks fails when the trainer is built
+    with pytest.raises(ValueError, match="device spec '1'"):
+        SelfPlayTrainer(config_from_dict({"model": TINY_MODEL, "training": training, "league": {
+            **league, "tournament_enabled": True, "tournament_device": "1"}}), device="cpu")
     with pytest.raises(NotImplementedError, match="several devices"):
         config_from_dict({"model": TINY_MODEL, "league": league,
                           "distributed": {"num_devices": 2}})
@@ -154,6 +166,58 @@ def test_league_mode_not_yet_ported(tmp_path):
             "training": {**training, "rollout_forward": "fused"}}), device="cpu")
     disabled = config_from_dict({"model": TINY_MODEL, "league": {"enabled": False}})
     assert not disabled.league.enabled
+
+
+@pytest.mark.parametrize("spec", [None, "default", "cuda", "0", 0, "cuda:0"])
+def test_parse_device_defaults_to_the_card(monkeypatch, spec):
+    """A device spec with no platform, or the card's, resolves to card 0,
+    and without CUDA raises at once; "cpu" and a caller's own default stay
+    on the CPU; a bad platform or an index past the cards raise."""
+    from keisei_tpu_torch.utils.device import parse_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert parse_device(spec) == torch.device("cuda", 0)
+    for bad in ("1", "cuda:1", "tpu:0", "cuda:x"):
+        with pytest.raises(ValueError):
+            parse_device(bad)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="CUDA is not available"):
+        parse_device(spec)
+    assert parse_device("cpu") == torch.device("cpu")
+    if spec in (None, "default"):
+        assert parse_device(spec, default="cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["worker_main", "TournamentWorker", "LeagueTournament",
+                                   "evaluate_main"])
+def test_tournament_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
+    """The sidecar worker (its `--device` defaults to `cuda`, where the JAX
+    worker's defaults to its CPU), a tournament on a store of the card, and
+    the evaluation CLI resolve to the card unless told otherwise, and raise
+    on a machine without CUDA instead of running on the CPU."""
+    from keisei_tpu_torch.league import evaluate, worker
+    from keisei_tpu_torch.league.config import LeagueConfig
+    from keisei_tpu_torch.league.store import OpponentStore
+    from keisei_tpu_torch.league.tournament import LeagueTournament
+
+    db, ldir = str(tmp_path / "l.db"), str(tmp_path / "l")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "worker_main":
+        with pytest.raises(ValueError, match="CUDA is not available"):
+            worker.main(["--db", db, "--league-dir", ldir])
+    elif entry == "TournamentWorker":
+        with pytest.raises(ValueError, match="CUDA is not available"):
+            worker.TournamentWorker(db, ldir)
+        assert worker.TournamentWorker(db, ldir, device="cpu").device == torch.device("cpu")
+    elif entry == "LeagueTournament":
+        store = OpponentStore(db, ldir, device="cpu")
+        assert LeagueTournament(store, LeagueConfig()).device == torch.device("cpu")
+        with pytest.raises(ValueError, match="CUDA is not available"):
+            LeagueTournament(store, LeagueConfig(), device="cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            evaluate.main(["--a", str(tmp_path), "--b", str(tmp_path)])
 
 
 def test_multi_device_not_yet_ported(tmp_path):

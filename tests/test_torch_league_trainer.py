@@ -88,8 +88,9 @@ def test_two_league_epochs(tmp_path, async_maintenance):
     data = jax_db.read_league_data(db_path)
     assert data["historical_library"] and data["gauntlet_results"]
     assert {r["epoch"] for r in data["gauntlet_results"]} == {2}
+    # the reference's phases, "tournament" included (marked with the tournament off)
     assert set(trainer._maint_phase_s) == {"record_results", "snapshot", "elo_review",
-                                           "historical_gauntlet"}
+                                           "historical_gauntlet", "tournament"}
     # snapshots are stored bf16 (storage.snapshot_dtype)
     snap = trainer.store.load_variables(trainer.store.get_entry(trainer.learner_entry_id))
     assert {v.dtype for v in snap.values()} == {torch.bfloat16}
