@@ -13,8 +13,11 @@ small size, then the scripts at their own sizes. Phase 8 trains league mode
 against K frozen opponents from the tiered pool, with the maintenance after
 each epoch) and drives the VecEnv host shim; phase 9 plays the league
 tournament (an in-process round at full width with Dynamic updates, the
-sidecar dispatcher and worker, and the round inside league training); no
-kernel lies on those two paths.
+sidecar dispatcher and worker, and the round inside league training);
+phase 10 runs the supervised warm start (scripts/sl_smoke.py: a corpus
+played by the engine on the card, the shards encoded on the card, SL
+training of b40c256, sl_to_rl and RL epochs with asynchronous saves); no
+kernel lies on those three paths.
 The 3x3 conv is checked on every route (wgmma fed by TMA for Cin % 64 == 0,
 the same kernel after a zero pad of the channels for the 50 observation
 planes, mma.sync with 1 / 2 / 4 boards per CTA), with the per-route launch
@@ -378,6 +381,39 @@ def tournament_phase(dev, card_line: str) -> None:
         "wiring_maintenance_s": {k: round(v, 3) for k, v in w["maintenance_s"].items()},
         "phase9_s": round(time.monotonic() - t0, 1)}
     print(f"phase9 tournament {json.dumps(summary)}")
+
+
+def sl_phase(dev, card_line: str) -> None:
+    """The supervised warm start on the card (scripts/sl_smoke.py) at the
+    width of configs/katago-b40c256.toml: 256 games on 256 envs (max_ply
+    320) written as CSA, prepare_sl_data with the encoder on the card (8
+    games re-encoded on the CPU to the same bits), 100 SL steps at B=256
+    and 10 at B=1024, evaluate on a held-out split, sl_to_rl (N=64, T=16,
+    sl_epochs 1 at B=256) over an RL epoch_000002 in the same directory,
+    and two RL epochs with asynchronous saves every epoch, each reloaded.
+    The cuts are printed; the script raises if a check fails. No kernel
+    lies on this path: the reference's SL step is flax + XLA, its encoder
+    the engine."""
+    from keisei_tpu_torch.scripts import sl_smoke
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = sl_smoke.run_sl(dev, tmp, label="phase10 sl")
+    tr, big, ev = r["train"], r["train_big"], r["eval"]
+    summary = {
+        "card": card_line, "corpus_games_per_s": round(r["corpus"]["games_per_s"], 3),
+        "corpus_games": r["corpus"]["games"], "positions": r["prepare"]["positions"],
+        "encode_positions_per_s": round(r["prepare"]["positions_per_s"], 1),
+        "sl": {str(x["batch"]): {"steps": x["steps"], "steps_per_s": round(x["steps_per_s"], 3),
+                                 "positions_per_s": round(x["positions_per_s"], 1),
+                                 "peak_gb": round(x["peak_gb"], 2)} for x in (tr, big)},
+        "eval": {k: round(ev[k], 4) for k in ("policy_top1", "policy_top5", "policy_nll",
+                                              "value_acc", "score_mse")},
+        "sl_to_rl_s": round(r["transition"]["sl_to_rl_s"], 2),
+        "rl_epochs": [{k: round(v, 4) for k, v in e.items()} for e in r["transition"]["rl_epochs"]],
+        "blocking_save_s": round(r["transition"]["blocking_save_s"], 4),
+        "phase10_s": round(time.monotonic() - t0, 1)}
+    print(f"phase10 sl {json.dumps(summary)}")
 
 
 def main() -> int:
@@ -920,6 +956,9 @@ def main() -> int:
 
     # -- phase 9: the league tournament on the card ----------------------------------
     tournament_phase(dev, card_line)
+
+    # -- phase 10: the supervised warm start on the card ---------------------------------
+    sl_phase(dev, card_line)
 
     sources = {
         PADDED_STEM: ("keisei_tpu_torch/csrc/conv3x3_wgmma.cu", "keisei_tpu/ops/conv3x3.py:69"),

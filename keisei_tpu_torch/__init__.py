@@ -10,7 +10,8 @@ imports JAX or `keisei_tpu`.
 Subpackages: db (the trainer's SQLite writes), engine (batched rules core),
 env (EnvCore, spectator data), models (SE-ResNet,
 fused eval forward, flax weight converter), ops (hand-written CUDA kernels
-with their plain PyTorch versions), training (GAE, PPO, rollout, loop),
+with their plain PyTorch versions), sl (records -> shards -> supervised
+training), training (GAE, PPO, rollout, loop, the SL -> RL transition),
 utils (device resolution).
 """
 

@@ -126,6 +126,18 @@ class GameState:
         return GameState(**{f.name: fn(getattr(self, f.name)) for f in fields(self)})
 
 
+def select_envs(mask: torch.Tensor, new, old):
+    """Per env, `new` where `mask` else `old`: a GameState, or a tensor
+    with a leading N."""
+    def sel(a, b):
+        return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    if isinstance(new, torch.Tensor):
+        return sel(new, old)
+    return type(new)(**{f.name: sel(getattr(new, f.name), getattr(old, f.name))
+                        for f in fields(new)})
+
+
 def init_state(n: int, max_ply: int, tb: EngineTables) -> GameState:
     """N fresh start positions with H = max_ply + 1 history slots."""
     dev = tb.device
@@ -399,7 +411,10 @@ def decode_action(action: torch.Tensor, stm: torch.Tensor, tb: EngineTables):
 
 
 def apply_action(state: GameState, action: torch.Tensor, tb: EngineTables) -> GameState:
-    """Apply one (legal) action per env; returns a new state."""
+    """Apply one (legal) action per env; returns a new state. Every index
+    is kept in range whatever the action (an illegal one, as a replayed
+    record may hold, gives a state of no meaning but never a fault): the
+    clamps below change nothing for a legal move."""
     n = state.board.shape[0]
     ar = torch.arange(n, device=state.board.device)
     stm = state.stm.long()
@@ -412,18 +427,18 @@ def apply_action(state: GameState, action: torch.Tensor, tb: EngineTables) -> Ga
     cap_valid = ~is_drop & (captured >= 0)
     captured_c = torch.clamp(captured, min=0)
     cap_kind = captured_c & 15
-    cap_base = torch.where(cap_kind >= 8, cap_kind - 8, cap_kind)
+    cap_base = torch.clamp(torch.where(cap_kind >= 8, cap_kind - 8, cap_kind), max=6)
 
-    placed = torch.where(is_drop, drop_piece + 16 * stm,
-                         torch.where(promote, cell_c + 8, cell_c))
+    placed = torch.clamp(torch.where(is_drop, drop_piece + 16 * stm,
+                                     torch.where(promote, cell_c + 8, cell_c)), max=31)
 
     new_board = board.clone()
     new_board[ar, from_abs] = torch.where(is_drop, board[ar, from_abs],
                                           torch.full_like(board[ar, from_abs], TY.EMPTY))
     new_board[ar, to_abs] = placed.to(torch.int8)
 
-    old_cap = hands[ar, stm, cap_base].long()
-    old_drop = hands[ar, stm, drop_piece].long()
+    old_cap = torch.clamp(hands[ar, stm, cap_base].long(), min=0)
+    old_drop = torch.clamp(hands[ar, stm, drop_piece].long(), min=0)
     new_hands = hands.clone()
     new_hands[ar, stm, cap_base] += cap_valid.to(torch.int8)
     new_hands[ar, stm, drop_piece] -= is_drop.to(torch.int8)
@@ -592,7 +607,7 @@ def env_step(state: GameState, action: torch.Tensor, reset_state: GameState,
     is_drop, _, to_abs, _, _ = decode_action(action, state.stm, tb)
     pre_target = state.board[ar, to_abs].long()
     cap_kind = pre_target & 15
-    cap_base = torch.where(cap_kind >= 8, cap_kind - 8, cap_kind)
+    cap_base = torch.clamp(torch.where(cap_kind >= 8, cap_kind - 8, cap_kind), max=6)
     captured_meta = torch.where(~is_drop & (pre_target >= 0), cap_base, 255).to(torch.uint8)
 
     s1 = apply_action(state, action, tb)

@@ -58,7 +58,7 @@ class TrainingConfig:
     # bf16 CUDA kernels (ops/); "int8": the int8 trunk (ops/qblock.py; needs
     # num_games divisible by 32)
     rollout_forward: str = "auto"
-    # accepted for file compatibility; the port's periodic saves are blocking
+    # periodic saves copy the state on the device and write on a worker thread
     async_checkpoint: bool = True
 
     def __post_init__(self):

@@ -26,12 +26,13 @@ import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, fields, replace
+from dataclasses import dataclass, replace
 from types import SimpleNamespace
 
 import torch
 
 from .. import db
+from ..engine.core import select_envs
 from ..env.vec_env import EnvCore
 from ..league.dynamic_trainer import DynamicTrainer
 from ..league.historical import HistoricalGauntlet, HistoricalLibrary
@@ -42,7 +43,8 @@ from ..league.tiers import TieredPool
 from ..league.tournament import LeagueTournament, TournamentDispatcher
 from ..models.registry import build_model, get_model_contract
 from ..utils.device import parse_device, resolve_device
-from .checkpoint import load_checkpoint, load_meta, prune_checkpoints, save_checkpoint
+from .checkpoint import (META_NAME, checkpoint_payload, load_checkpoint, load_meta,
+                         prune_checkpoints, write_checkpoint)
 from .config import Config
 from .league_rollout import compact_supported, make_league_rollout, parity_colors
 from .observability import TrainingObserver
@@ -161,6 +163,10 @@ class SelfPlayTrainer:
         self.generator.manual_seed(tc.seed)
         self.epoch = 0
         self.env_carry = self.env_core.init()
+        # periodic saves with async_checkpoint: one write in flight, on one
+        # worker thread, from a device copy of the state (see save())
+        self._ckpt_executor = None
+        self._ckpt_future = None
         self._maybe_resume()
         self.total_episodes = 0
         self.total_ply = 0
@@ -312,7 +318,7 @@ class SelfPlayTrainer:
         for k in slots:
             mask[k * B:(k + 1) * B] = True
         fresh = self.env_core.init()
-        self.env_carry = tuple(_select_envs(mask, f, c) for f, c in zip(fresh, self.env_carry))
+        self.env_carry = tuple(select_envs(mask, f, c) for f, c in zip(fresh, self.env_carry))
         self.learner_color = torch.where(mask, self._fresh_colors(N), self.learner_color)
         logger.debug("cohort swap: reset %d env blocks %s", len(slots), slots)
 
@@ -358,11 +364,25 @@ class SelfPlayTrainer:
         return best
 
     def _maybe_resume(self) -> None:
-        path = self._resume_from or self.latest_checkpoint()
+        if self._resume_from is not None:
+            path = self._resume_from
+            if not os.path.isfile(os.path.join(path, META_NAME)):
+                raise FileNotFoundError(
+                    f"explicit resume checkpoint has no keisei_meta.json: {path}")
+        else:
+            path = self.latest_checkpoint()
         if path is None:
             return
+        from_sl = load_meta(path).get("phase") == "sl"
+        # SL warm start: the weights only; the SL optimizer is discarded,
+        # the trainer keeps its own generator and starts at epoch 0
         meta = load_checkpoint(path, self.model, self.optimizer, self.generator,
-                               architecture=self.config.model.architecture)
+                               architecture=self.config.model.architecture,
+                               skip_optimizer=from_sl)
+        if from_sl:
+            self.epoch = 0
+            logger.info("warm-started from SL checkpoint %s (optimizer reset)", path)
+            return
         self.epoch = meta["epoch"]
         if meta.get("learning_rate"):
             set_learning_rate(self.optimizer, meta["learning_rate"])
@@ -371,21 +391,68 @@ class SelfPlayTrainer:
             self.lr_sched.bad_epochs = meta.get("lr_plateau_bad_epochs", 0)
         logger.info("resumed from %s at epoch %d", path, self.epoch)
 
-    def save(self, path: str | None = None) -> str:
+    def save(self, path: str | None = None, *, blocking: bool = True) -> str:
+        """Checkpoint the trainer. blocking=True (every explicit call)
+        returns with the checkpoint on disk. blocking=False (the periodic
+        saves when training.async_checkpoint is on) copies the model's and
+        the optimizer's state on the device first, because the next update
+        changes the live tensors in place, then writes and prunes on the
+        checkpoint thread. One write is in flight at a time: every save
+        waits for the one before, and a failed write raises there."""
         d = self.config.training.checkpoint_dir
         os.makedirs(d, exist_ok=True)
         path = path or os.path.join(d, f"epoch_{self.epoch:06d}")
-        save_checkpoint(
-            path, self.model, self.optimizer, epoch=self.epoch,
-            architecture=self.config.model.architecture, generator=self.generator,
-            extra_meta={
-                "learning_rate": get_learning_rate(self.optimizer),
-                "model_params": dict(self.config.model.params),
-                "lr_plateau_best": self.lr_sched.best,
-                "lr_plateau_bad_epochs": self.lr_sched.bad_epochs,
-            })
-        prune_checkpoints(d, self.config.training.checkpoint_keep)
+        meta = dict(epoch=self.epoch, architecture=self.config.model.architecture,
+                    extra_meta={
+                        "learning_rate": get_learning_rate(self.optimizer),
+                        "model_params": dict(self.config.model.params),
+                        "lr_plateau_best": self.lr_sched.best,
+                        "lr_plateau_bad_epochs": self.lr_sched.bad_epochs,
+                    })
+        keep = self.config.training.checkpoint_keep
+        self._drain_checkpoint()
+        payload = checkpoint_payload(self.model, self.optimizer, self.generator,
+                                     copy=not blocking)
+        if blocking:
+            write_checkpoint(path, payload, **meta)
+            prune_checkpoints(d, keep)
+            return path
+
+        def write() -> None:
+            write_checkpoint(path, payload, **meta)
+            prune_checkpoints(d, keep)
+
+        if self._ckpt_executor is None:
+            self._ckpt_executor = ThreadPoolExecutor(max_workers=1,
+                                                     thread_name_prefix="keisei-ckpt")
+        self._ckpt_future = self._ckpt_executor.submit(write)
         return path
+
+    def _drain_checkpoint(self) -> None:
+        """Wait for the checkpoint write in flight, if any; its exception,
+        if it failed, is raised here."""
+        future, self._ckpt_future = self._ckpt_future, None
+        if future is not None:
+            future.result()
+
+    def close(self) -> None:
+        """Drain the checkpoint writer and the league maintenance: call it
+        before dropping a trainer whose periodic saves are asynchronous."""
+        self._drain_checkpoint()
+        self.drain_maintenance()
+        if self._ckpt_executor is not None:
+            self._ckpt_executor.shutdown(wait=True)
+            self._ckpt_executor = None
+
+    def __del__(self):
+        # a trainer dropped without close(): its last periodic write still
+        # lands; a failure can only be logged here
+        future = getattr(self, "_ckpt_future", None)
+        if future is not None:
+            try:
+                future.result()
+            except Exception:
+                logger.exception("checkpoint write failed before the trainer was dropped")
 
     # -- training ---------------------------------------------------------------
 
@@ -434,7 +501,9 @@ class SelfPlayTrainer:
         self.total_ply += stats.total_ply
         if self.league_enabled:
             self._league_epoch_end(league_stats)
-        ckpt = self.save() if self.epoch % tc.checkpoint_interval == 0 else None
+        ckpt = None
+        if self.epoch % tc.checkpoint_interval == 0:
+            ckpt = self.save(blocking=not tc.async_checkpoint)
         t3 = time.monotonic()
         em = EpochMetrics(
             epoch=self.epoch, learning_rate=new_lr,
@@ -603,7 +672,7 @@ class SelfPlayTrainer:
                 steps / max(em.rollout_time, 1e-9), em.update_time,
                 run_steps / max(time.monotonic() - wall0, 1e-9))
         self.drain_maintenance()
-        self.save()
+        self.save()  # drains the periodic write first; blocking
         if self.league_enabled:
             # queued async weight flushes land before exit; a failed final
             # flush is loud but does not abort the rest of the teardown
@@ -612,18 +681,6 @@ class SelfPlayTrainer:
             except RuntimeError:
                 logger.exception("final league weight flush failed")
         self.observer.on_stop("stopped")
-
-
-def _select_envs(mask: torch.Tensor, new, old):
-    """Per env, `new` where `mask` else `old`: a GameState, or a tensor
-    with a leading N."""
-    def sel(a, b):
-        return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
-
-    if isinstance(new, torch.Tensor):
-        return sel(new, old)
-    return type(new)(**{f.name: sel(getattr(new, f.name), getattr(old, f.name))
-                        for f in fields(new)})
 
 
 def main(argv=None):

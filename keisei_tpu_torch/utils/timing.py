@@ -1,9 +1,10 @@
 """Timing on the card: the CUDA-event time of a call (cuda_ms; graph_ms with
 the calls replayed from a CUDA graph, for kernels shorter than their launch
 from Python), the device time of each kernel inside a call from a profiler
-trace (trace_kernel_us, traced_kernel_ms), and the card's name and power limit as nvidia-smi
-reports them (a card set below 700 W runs slower under load, so every
-recorded time stands beside this line)."""
+trace (trace_kernel_us, traced_kernel_ms), the device's busy share over a
+window of calls (device_busy), and the card's name and power limit as
+nvidia-smi reports them (a card set below 700 W runs slower under load, so
+every recorded time stands beside this line)."""
 
 from __future__ import annotations
 
@@ -112,6 +113,54 @@ def trace_kernel_us(fn, calls: int) -> dict[str, list[float]]:
     for _, name, us in launches:
         times.setdefault(name, []).append(us)
     return times
+
+
+def union_us(spans: list[tuple[float, float]]) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def device_busy(fn, calls: int) -> dict[str, float]:
+    """The device's busy share over `calls` calls of fn() (after an untraced
+    warm-up call and TRACE_LEAD traced lead calls) in a torch.profiler
+    (CUPTI) trace: the union of its kernel, copy and memset intervals inside
+    the window, over the window's length (the host's launches and the final
+    synchronize included); and the kernels launched per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_LEAD):
+            fn()
+        torch.cuda.synchronize()
+        with record_function("device_busy_window"):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    # the window's range on the host; record_function also leaves a device-side
+    # annotation of it (and autograd and the optimizer leave theirs): no
+    # annotation is device work
+    window = [e for e in events if e.name == "device_busy_window"
+              and e.device_type == DeviceType.CPU]
+    if len(window) != 1:
+        raise RuntimeError(f"the trace holds {len(window)} busy windows, not 1")
+    t0, t1 = window[0].time_range.start, window[0].time_range.end
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation
+              and e.time_range.end > t0 and e.time_range.start < t1]
+    kernels = [e for e in device if t0 <= e.time_range.start
+               and not e.name.lower().startswith(("memcpy", "memset"))]
+    busy = union_us([(max(e.time_range.start, t0), min(e.time_range.end, t1)) for e in device])
+    return {"window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (t1 - t0), "kernels_per_call": len(kernels) / calls}
 
 
 def traced_kernel_ms(trace: dict[str, list[float]], pattern: str, calls: int,

@@ -23,10 +23,12 @@ from keisei_tpu.engine import tables as jax_tables
 from keisei_tpu.engine import types as jax_types
 from keisei_tpu.engine import zobrist as jax_zobrist
 from keisei_tpu.env import spectator_data as jax_spectator
+from keisei_tpu.sl import dataset as jax_sl_dataset
 from keisei_tpu_torch.db import schema
 from keisei_tpu_torch.engine import sfen, tables, zobrist
 from keisei_tpu_torch.engine import types as port_types
 from keisei_tpu_torch.env import spectator_data
+from keisei_tpu_torch.sl import dataset as sl_dataset
 from keisei_tpu_torch.training.config import config_from_dict
 from keisei_tpu_torch.training.loop import SelfPlayTrainer
 
@@ -35,7 +37,7 @@ torch.set_num_threads(2)
 
 def _constants(mod) -> dict:
     """Module-level data of a module: arrays, numbers, strings, containers."""
-    keep = (np.ndarray, np.generic, int, float, str, bool, tuple, list, dict)
+    keep = (np.ndarray, np.generic, np.dtype, int, float, str, bool, tuple, list, dict)
     return {k: v for k, v in vars(mod).items()
             if not k.startswith("__") and isinstance(v, keep)
             and not isinstance(v, (types.ModuleType, type))}
@@ -54,8 +56,10 @@ def _equal(a, b) -> bool:
 
 @pytest.mark.parametrize("port,orig", [(tables, jax_tables), (port_types, jax_types),
                                        (zobrist, jax_zobrist), (sfen, jax_sfen),
-                                       (spectator_data, jax_spectator)],
-                         ids=["tables", "types", "zobrist", "sfen", "spectator_data"])
+                                       (spectator_data, jax_spectator),
+                                       (sl_dataset, jax_sl_dataset)],
+                         ids=["tables", "types", "zobrist", "sfen", "spectator_data",
+                              "sl_dataset"])
 def test_copied_constants_equal_the_originals(port, orig):
     ours, theirs = _constants(port), _constants(orig)
     assert ours.keys() == theirs.keys()
@@ -127,10 +131,11 @@ REPO = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("path", ["league/tiers.py", "league/scheduler.py",
                                   "league/historical.py", "db/league_tables.py",
                                   "league/features.py", "league/style.py", "db/queue.py",
-                                  "db/analytics.py"])
+                                  "db/analytics.py", "sl/parsers.py", "sl/dataset.py"])
 def test_league_copies_are_byte_identical(path):
     """Framework-free modules copied whole: their relative imports resolve to
-    the port's own store, match and db, so not even an import line differs."""
+    the port's own store, match and db, so not even an import line differs
+    (the SL parsers and shard format too: standard library and numpy only)."""
     ours = (REPO / "keisei_tpu_torch" / path).read_bytes()
     assert ours == (REPO / "keisei_tpu" / path).read_bytes()
 
