@@ -16,8 +16,12 @@ tournament (an in-process round at full width with Dynamic updates, the
 sidecar dispatcher and worker, and the round inside league training);
 phase 10 runs the supervised warm start (scripts/sl_smoke.py: a corpus
 played by the engine on the card, the shards encoded on the card, SL
-training of b40c256, sl_to_rl and RL epochs with asynchronous saves); no
-kernel lies on those three paths.
+training of b40c256, sl_to_rl and RL epochs with asynchronous saves, SL
+steps at 4,096 rows); phase 11 runs the dashboard feed
+(scripts/showcase_smoke.py: the spectator env on the card against the
+CPU's, an exhibition game of b40c256 through the showcase runner, a
+demonstrator game, the dashboard server's messages); no kernel lies on
+those four paths.
 The 3x3 conv is checked on every route (wgmma fed by TMA for Cin % 64 == 0,
 the same kernel after a zero pad of the channels for the 50 observation
 planes, mma.sync with 1 / 2 / 4 boards per CTA), with the per-route launch
@@ -390,10 +394,12 @@ def sl_phase(dev, card_line: str) -> None:
     games re-encoded on the CPU to the same bits), 100 SL steps at B=256
     and 10 at B=1024, evaluate on a held-out split, sl_to_rl (N=64, T=16,
     sl_epochs 1 at B=256) over an RL epoch_000002 in the same directory,
-    and two RL epochs with asynchronous saves every epoch, each reloaded.
-    The cuts are printed; the script raises if a check fails. No kernel
-    lies on this path: the reference's SL step is flax + XLA, its encoder
-    the engine."""
+    and two RL epochs with asynchronous saves every epoch, each reloaded;
+    then 3 SL steps at 4,096 rows, sl_to_rl's default batch, which recompute
+    each block in the backward (sl/trainer.py:RECOMPUTE_ABOVE), with their
+    peak memory and seconds. The cuts are printed; the script raises if a
+    check fails. No kernel lies on this path: the reference's SL step is
+    flax + XLA, its encoder the engine."""
     from keisei_tpu_torch.scripts import sl_smoke
 
     t0 = time.monotonic()
@@ -409,11 +415,39 @@ def sl_phase(dev, card_line: str) -> None:
                                  "peak_gb": round(x["peak_gb"], 2)} for x in (tr, big)},
         "eval": {k: round(ev[k], 4) for k in ("policy_top1", "policy_top5", "policy_nll",
                                               "value_acc", "score_mse")},
+        "sl_4096": {k: r["probe"][k] for k in ("recomputes", "peak_gb", "step_s")},
         "sl_to_rl_s": round(r["transition"]["sl_to_rl_s"], 2),
         "rl_epochs": [{k: round(v, 4) for k, v in e.items()} for e in r["transition"]["rl_epochs"]],
         "blocking_save_s": round(r["transition"]["blocking_save_s"], 4),
         "phase10_s": round(time.monotonic() - t0, 1)}
     print(f"phase10 sl {json.dumps(summary)}")
+
+
+def feed_phase(dev, card_line: str) -> None:
+    """The dashboard feed on the card (scripts/showcase_smoke.py): the
+    spectator env on the card against the CPU's over a random legal game of
+    up to 256 plies and a decided SFEN; an exhibition game of two b40c256
+    entries at full width (random weights) through ShowcaseRunner.run with
+    the move delays at 0 (max_ply 512, cut to 256 and printed where the
+    measured forward and step put it past 60 s), timed per ply; a
+    demonstrator game of max_ply 64; the dashboard server's messages
+    validated and a queue command over the WebSocket. The script raises if
+    a check fails. No kernel lies on this path: the reference's showcase
+    runs the flax model at B=1, its spectator the engine."""
+    from keisei_tpu_torch.scripts import showcase_smoke
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = showcase_smoke.run_feed(dev, tmp, label="phase11 feed")
+    sh = r["showcase"]
+    summary = {
+        "card": card_line, "spectator_plies": r["spectator"]["plies"],
+        "spectator_step_ms": round(r["spectator"]["step_ms"], 3),
+        "showcase": {k: (round(v, 3) if isinstance(v, float) else v) for k, v in sh.items()
+                     if k != "value_range"},
+        "demo_plies": r["demo"]["plies"], "server_messages": r["server"]["messages"],
+        "phase11_s": round(time.monotonic() - t0, 1)}
+    print(f"phase11 feed {json.dumps(summary)}")
 
 
 def main() -> int:
@@ -959,6 +993,9 @@ def main() -> int:
 
     # -- phase 10: the supervised warm start on the card ---------------------------------
     sl_phase(dev, card_line)
+
+    # -- phase 11: the dashboard feed on the card ------------------------------------------
+    feed_phase(dev, card_line)
 
     sources = {
         PADDED_STEM: ("keisei_tpu_torch/csrc/conv3x3_wgmma.cu", "keisei_tpu/ops/conv3x3.py:69"),

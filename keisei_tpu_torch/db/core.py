@@ -1,8 +1,10 @@
 """Connection management, schema init, and generic row helpers.
 
-The port's own copy of the part of keisei_tpu/db/core.py that the training
-observer and the league reach: WAL-mode connections with busy timeouts, idempotent
-schema creation with a version guard, and dict -> row plumbing.
+One tiny layer under every domain module: WAL-mode connections with busy
+timeouts (the DB doubles as the cross-process message bus, reference
+SURVEY §2.6), idempotent schema creation with a version guard
+(keisei/db/__init__.py:80-115 semantics), and dict<->row plumbing so the
+domain modules stay declarative.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def init_db(db_path: str) -> None:
             row = conn.execute("SELECT version FROM schema_version").fetchone()
             if row and row[0] == SCHEMA_VERSION:
                 return
-        except sqlite3.Error:
+        except Exception:
             pass  # missing table: fresh/partial db — run the full DDL
         conn.executescript(DDL)
         row = conn.execute("SELECT version FROM schema_version").fetchone()
@@ -50,10 +52,32 @@ def init_db(db_path: str) -> None:
         if row is None:
             conn.execute("INSERT INTO schema_version VALUES (?)", (SCHEMA_VERSION,))
         elif version < SCHEMA_VERSION:
+            # This framework starts at v8; older versions only exist if the
+            # db came from the reference, whose CREATE TABLE IF NOT EXISTS
+            # blocks above already added any missing tables. Column-level
+            # migrations would register here.
             conn.execute("UPDATE schema_version SET version = ?", (SCHEMA_VERSION,))
         conn.commit()
     finally:
         conn.close()
+
+
+def wal_checkpoint(db_path: str) -> tuple[int, int, int]:
+    """PRAGMA wal_checkpoint(TRUNCATE): merge WAL into the main db file.
+
+    Returns (busy, log_pages, checkpointed_pages).
+    """
+    conn = connect(db_path)
+    try:
+        row = conn.execute("PRAGMA wal_checkpoint(TRUNCATE)").fetchone()
+        return (row[0], row[1], row[2]) if row else (0, 0, 0)
+    finally:
+        conn.close()
+
+
+# ---------------------------------------------------------------------------
+# Generic helpers (domain modules build on these)
+# ---------------------------------------------------------------------------
 
 
 def insert(

@@ -1,10 +1,8 @@
-"""Training telemetry writes: metrics, training_state (heartbeat), game
-snapshots.
+"""Training telemetry: metrics, training_state (heartbeat), game snapshots.
 
-The port's own copy of the write surface of keisei_tpu/db/telemetry.py that
-the training observer calls, and `read_training_state`, where a league run
-finds its learner's entry on resume. The dashboard's read surface stays in
-the JAX package, which reads the same tables.
+The write surface the training loop needs (reference:
+keisei/db/metrics.py, training_state.py, snapshots.py) and the cursored
+read surface the dashboard server needs.
 """
 
 from __future__ import annotations
@@ -26,6 +24,55 @@ def _metric_row(metrics: dict[str, Any]) -> dict[str, Any]:
     row["epoch"] = metrics.get("epoch", 0)
     row["step"] = metrics.get("step", 0)
     return row
+
+
+def write_metrics(db_path: str, metrics: dict[str, Any]) -> None:
+    core.write_row(db_path, "metrics", _metric_row(metrics))
+
+
+def read_metrics_since(db_path: str, since_id: int, limit: int = 500) -> list[dict[str, Any]]:
+    return core.fetch_all(
+        db_path, "SELECT * FROM metrics WHERE id > ? ORDER BY id LIMIT ?",
+        (since_id, limit),
+    )
+
+
+def read_metrics_tail(db_path: str, limit: int = 500) -> list[dict[str, Any]]:
+    """Newest `limit` metrics rows, ascending id.
+
+    For init payloads: read_metrics_since(p, 0, N) returns rows 1..N — on a
+    long run a (re)connecting dashboard would then crawl from the oldest
+    epoch to live at the poll rate (minutes of stale charts). The client
+    wants the RECENT window."""
+    return core.fetch_all(
+        db_path,
+        "SELECT * FROM (SELECT * FROM metrics ORDER BY id DESC LIMIT ?) "
+        "ORDER BY id",
+        (limit,),
+    )
+
+
+def sum_episodes_completed(db_path: str, up_to_id: int | None = None) -> int:
+    """Lifetime episode count across metrics rows (the init payload only
+    carries the newest window, so the counter must come from SQL).
+
+    up_to_id bounds the sum at the caller's poll cursor: rows written
+    between the init tail read and this call have id > cursor and will be
+    counted by the first read_metrics_since poll — summing them here too
+    double-counts them for the connection's lifetime (review r2)."""
+    if up_to_id is None:
+        row = core.fetch_one(
+            db_path,
+            "SELECT COALESCE(SUM(episodes_completed), 0) AS s FROM metrics",
+        )
+    else:
+        row = core.fetch_one(
+            db_path,
+            "SELECT COALESCE(SUM(episodes_completed), 0) AS s FROM metrics "
+            "WHERE id <= ?",
+            (up_to_id,),
+        )
+    return int(row["s"]) if row else 0
 
 
 # --- training_state singleton ------------------------------------------------
@@ -54,9 +101,23 @@ def read_training_state(db_path: str) -> dict[str, Any] | None:
     return core.fetch_one(db_path, "SELECT * FROM training_state WHERE id = 1")
 
 
+def set_total_epochs(db_path: str, total_epochs: int) -> None:
+    core.execute(
+        db_path, "UPDATE training_state SET total_epochs = ? WHERE id = 1",
+        (total_epochs,),
+    )
+
+
 def set_status(db_path: str, status: str) -> None:
     core.execute(
         db_path, "UPDATE training_state SET status = ? WHERE id = 1", (status,)
+    )
+
+
+def update_heartbeat(db_path: str) -> None:
+    core.execute(
+        db_path,
+        f"UPDATE training_state SET heartbeat_at = {core.NOW_SEC} WHERE id = 1",
     )
 
 
@@ -91,8 +152,11 @@ def write_epoch_summary(
     step: int,
     checkpoint_path: str | None = None,
 ) -> None:
-    """Metrics insert + progress update + WAL truncate, one connection, so
-    WAL growth stays bounded across epochs."""
+    """Metrics insert + progress update + WAL truncate, one connection.
+
+    Matches the reference's batched epoch write (training_state.py
+    write_epoch_summary) so WAL growth stays bounded across epochs.
+    """
     conn = core.connect(db_path)
     try:
         conn.execute("BEGIN")
@@ -138,3 +202,27 @@ def write_game_snapshots(db_path: str, snapshots: list[dict[str, Any]]) -> None:
         conn.commit()
     finally:
         conn.close()
+
+
+def read_game_snapshots(db_path: str) -> list[dict[str, Any]]:
+    return core.fetch_all(db_path, "SELECT * FROM game_snapshots ORDER BY game_id")
+
+
+def read_game_snapshots_since(
+    db_path: str, since_ts: str, since_game_id: int = 0
+) -> tuple[list[dict[str, Any]], str, int]:
+    """Composite-cursor incremental read: (updated_at, game_id) strictly after
+    the cursor, so equal timestamps can't drop rows (reference
+    snapshots.py read_game_snapshots_since)."""
+    rows = core.fetch_all(
+        db_path,
+        "SELECT * FROM game_snapshots "
+        "WHERE updated_at > ? OR (updated_at = ? AND game_id > ?) "
+        "ORDER BY updated_at, game_id",
+        (since_ts, since_ts, since_game_id),
+    )
+    max_ts, max_gid = since_ts, since_game_id
+    if rows:
+        max_ts = max(r["updated_at"] for r in rows)
+        max_gid = max(r["game_id"] for r in rows if r["updated_at"] == max_ts)
+    return rows, max_ts, max_gid

@@ -157,8 +157,10 @@ def init_state(n: int, max_ply: int, tb: EngineTables) -> GameState:
     )
 
 
-def state_from_position(board, hands, stm, max_ply: int, tb: EngineTables) -> GameState:
-    """A batch of one from an absolute-space numpy position (SFEN fixtures)."""
+def state_from_position(board, hands, stm, max_ply: int, tb: EngineTables,
+                        ply: int = 0) -> GameState:
+    """A batch of one from an absolute-space numpy position (SFEN fixtures),
+    `ply` plies into its game (no history before it)."""
     st = init_state(1, max_ply, tb)
     h = int(_lanes_to_i64(Z.compute_hash(board, hands, int(stm))))
     dev = tb.device
@@ -167,6 +169,7 @@ def state_from_position(board, hands, stm, max_ply: int, tb: EngineTables) -> Ga
         board=torch.as_tensor(np.asarray(board, np.int8), device=dev)[None],
         hands=torch.as_tensor(np.asarray(hands, np.int8), device=dev)[None],
         stm=torch.full((1,), int(stm), dtype=torch.int8, device=dev),
+        ply=torch.full((1,), int(ply), dtype=torch.int32, device=dev),
         hash_=torch.full((1,), h, dtype=torch.int64, device=dev),
     )
 

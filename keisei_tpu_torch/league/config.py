@@ -4,8 +4,8 @@ validation and `league_config_from_dict`, so the same [league] sections
 parse to the same values; only the comments speak of the port).
 
 `opponent_device` is N/A by design (opponents ride the learner's rollout
-on its device); `tournament_device` and the tournament's fields are
-accepted and validated, but the tournament is not ported yet.
+on its device); `tournament_device` and the tournament's fields are read
+by the port's tournament (league/tournament.py).
 """
 
 from __future__ import annotations
@@ -278,8 +278,8 @@ class LeagueConfig:
     tournament_enabled: bool = False
     # the device of in-process tournament rounds (match play + dynamic
     # updates), the reference's learner-GPU-0/tournament-GPU-1 split;
-    # None/"default" = the learner's. Consumed by the tournament, which is
-    # not ported yet.
+    # None/"default" = the learner's. Consumed by the tournament
+    # (league/tournament.py).
     tournament_device: str | None = None
     tournament_num_envs: int = 64
     tournament_games_per_match: int = 3

@@ -21,11 +21,13 @@ Layout is NCHW inside; the policy logits leave as (B, 9, 9, 139).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .base import SPATIAL_MOVE_TYPES, KataGoOutput
 
@@ -71,6 +73,9 @@ class FlaxBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        # False while a checkpointed block is recomputed in the backward:
+        # the step's forward has moved the statistics already
+        self.update_statistics = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -78,9 +83,10 @@ class FlaxBatchNorm(nn.Module):
             mean = xf.mean(dim=(0, 2, 3))
             mean2 = (xf * xf).mean(dim=(0, 2, 3))
             var = torch.clamp(mean2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
-                self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+            if self.update_statistics:
+                with torch.no_grad():
+                    self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+                    self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
         mul = torch.rsqrt(var + BN_EPS) * self.weight.float()
@@ -132,6 +138,20 @@ class GlobalPoolBiasBlock(nn.Module):
         return F.relu(out + x)
 
 
+@contextlib.contextmanager
+def _statistics_frozen(module: nn.Module):
+    """`module`'s BatchNorm layers normalise with batch statistics but do
+    not move their running statistics."""
+    bns = [m for m in module.modules() if isinstance(m, FlaxBatchNorm)]
+    for bn in bns:
+        bn.update_statistics = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_statistics = True
+
+
 class SEResNetModel(nn.Module):
     """Eager SE-ResNet. Submodule names follow the flax parameter tree
     (input_conv, block{i}.conv1, ...), so models/convert.py maps 1:1."""
@@ -155,7 +175,11 @@ class SEResNetModel(nn.Module):
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.params_cfg.num_blocks)]
 
-    def forward(self, obs: torch.Tensor) -> KataGoOutput:
+    def forward(self, obs: torch.Tensor, recompute_blocks: bool = False) -> KataGoOutput:
+        """`recompute_blocks`: keep only each block's input for the
+        backward and recompute the block there (non-reentrant
+        torch.utils.checkpoint), with the same values and gradients; the
+        recompute leaves the BatchNorm statistics as the forward moved them."""
         p = self.params_cfg
         if obs.dim() != 4 or obs.shape[1] != p.obs_channels or tuple(obs.shape[2:]) != (9, 9):
             raise ValueError(f"expected obs (B, {p.obs_channels}, 9, 9), got {tuple(obs.shape)}")
@@ -163,7 +187,12 @@ class SEResNetModel(nn.Module):
         with torch.autocast(device_type=obs.device.type, dtype=p.dtype, enabled=low):
             x = F.relu(self.input_bn(self.input_conv(obs.float())))
             for blk in self.blocks():
-                x = blk(x)
+                if recompute_blocks:
+                    x = checkpoint(blk, x, use_reentrant=False,
+                                   context_fn=lambda b=blk: (contextlib.nullcontext(),
+                                                             _statistics_frozen(b)))
+                else:
+                    x = blk(x)
             pol = F.relu(self.policy_bn1(self.policy_conv1(x)))
             pol = self.policy_conv2(pol)
             pool = global_pool(x)

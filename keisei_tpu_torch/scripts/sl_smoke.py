@@ -9,7 +9,8 @@ asynchronous.
     python -m keisei_tpu_torch.scripts.sl_smoke [--device cuda] [--games 256]
         [--envs 256] [--max-ply 320] [--steps 100] [--batch 256] [--big-batch 1024]
         [--big-steps 10] [--rl-games 64] [--rl-steps 16] [--blocks N] [--busy-steps 5]
-    python -m keisei_tpu_torch.scripts.sl_smoke --device cuda --probe-batch 4096
+        [--probe-rows 4096]
+    python -m keisei_tpu_torch.scripts.sl_smoke --device cuda --probe-batch 2048 4096
 
 The cuts are printed. The checks (each raises): the corpus parses; the
 encoder kept every move (`dropped_moves == 0`: the engine played these
@@ -19,10 +20,14 @@ gives finite losses, a lower policy loss over its last 10 steps than over
 its first 10, moved parameters, and leaves every tensor on the device;
 after `sl_to_rl` the RL trainer is at epoch 0 with `sl_final`'s weights
 bit for bit and no optimizer state, and its epochs give finite losses;
-every asynchronous checkpoint reloads to the state it was taken from.
+every asynchronous checkpoint reloads to the state it was taken from;
+3 steps at `--probe-rows` rows (4,096, the default batch of `sl_to_rl`;
+0 skips them) fit and give finite losses.
 `--busy-steps N` also traces N more SL steps at each batch size on a card
-for the device's busy share and the kernels per step. `--probe-batch B` runs one
-SL step at B rows and prints its peak memory or the out-of-memory error.
+for the device's busy share and the kernels per step. `--probe-batch B ...`
+runs only 3 SL steps at each B rows, with and without the per-block
+recompute, and prints each one's peak memory and seconds a step, or the
+out-of-memory error.
 chip_smoke.py phase 10 calls `run_sl`.
 """
 
@@ -45,6 +50,7 @@ from ..sl.dataset import SLDataset, write_meta, write_shard
 from ..sl.encode import GameEncoder
 from ..sl.parsers import CSAParser, GameFilter, build_parser_registry
 from ..sl.prepare import _iter_game_files, prepare_sl_data
+from ..sl import trainer as sl_trainer
 from ..sl.trainer import SLConfig, SLTrainer
 from ..training.checkpoint import STATE_NAME, load_checkpoint
 from ..training.config import Config, config_from_dict
@@ -197,22 +203,45 @@ def step_busy(trainer: SLTrainer, ds: SLDataset, order: np.ndarray, label: str,
 
 
 def probe_batch(device: torch.device, ds: SLDataset, arch: str, params: dict,
-                batch: int) -> dict:
-    """One SL step at `batch` rows: its peak memory, or the out-of-memory
-    error it raised (recorded, not a failure of the smoke)."""
+                batch: int, *, recompute: bool | None = None, steps: int = 3,
+                strict: bool = False) -> dict:
+    """`steps` SL steps at `batch` rows on one batch: the peak memory, the
+    seconds of each step after the first (the first builds cuDNN's plans)
+    and the last step's losses. `recompute` None leaves the choice to the
+    trainer (`sl/trainer.py:RECOMPUTE_ABOVE`); True or False forces the
+    per-block recompute on or off. An out-of-memory error is recorded,
+    unless `strict`, where it and non-finite losses raise."""
     if len(ds) < batch:
         raise ValueError(f"{len(ds)} positions, fewer than the {batch} rows asked for")
+    mode = {None: "default", True: "recompute", False: "plain"}[recompute]
+    saved = sl_trainer.RECOMPUTE_ABOVE
+    if recompute is not None:
+        sl_trainer.RECOMPUTE_ABOVE = batch - 1 if recompute else batch
     trainer = SLTrainer(SLConfig(batch_size=batch, epochs=1, seed=0), arch, params, ds,
-                        train_indices=np.arange(batch), device=device)
-    _reset_peak(device)
+                        device=device)
+    r = {"batch": batch, "mode": mode, "recomputes": batch > sl_trainer.RECOMPUTE_ABOVE}
     try:
-        trainer.train_epoch()
-        _sync(device)
-        r = {"batch": batch, "fits": True, "peak_gb": _peak_gb(device)}
+        b = trainer._to_device(next(ds.batches(batch, order=np.arange(batch))))
+        _reset_peak(device)
+        times = []
+        for _ in range(steps):
+            _sync(device)
+            t0 = time.monotonic()
+            losses = trainer._train_step(b)
+            _sync(device)
+            times.append(time.monotonic() - t0)
+        losses = losses.tolist()
+        r.update(fits=True, peak_gb=_peak_gb(device), step_s=times[1:] or times,
+                 losses=losses)
     except torch.cuda.OutOfMemoryError as e:
-        r = {"batch": batch, "fits": False, "peak_gb": _peak_gb(device),
-             "error": str(e).splitlines()[0]}
+        if strict:
+            raise
+        r.update(fits=False, peak_gb=_peak_gb(device), error=str(e).splitlines()[0])
+    finally:
+        sl_trainer.RECOMPUTE_ABOVE = saved
     print(f"sl probe {r}")
+    if strict and not all(math.isfinite(v) for v in r["losses"]):
+        raise AssertionError(f"SL step at {batch} rows: losses {r['losses']}")
     return r
 
 
@@ -220,16 +249,20 @@ def run_sl(device: torch.device | str, tmp: str, *, games: int = 256, envs: int 
            max_ply: int = 320, steps: int = 100, batch: int = 256, big_batch: int = 1024,
            big_steps: int = 10, eval_positions: int = 4096, transition_positions: int = 2560,
            rl_games: int = 64, rl_steps: int = 16, rl_batch: int = 256,
-           blocks: int | None = None, busy_steps: int = 0, label: str = "sl") -> dict:
+           blocks: int | None = None, busy_steps: int = 0, probe_rows: int = 4096,
+           label: str = "sl") -> dict:
     """The whole warm start, checked; returns what was measured.
     `busy_steps` > 0 traces that many more SL steps at each batch size on a
-    card (slow: a step launches ~11k kernels, each a traced event)."""
+    card (slow: a step launches ~11k kernels, each a traced event).
+    `probe_rows` > 0 runs 3 steps at that many rows (the default batch of
+    `sl_to_rl`) as the trainer runs them, and raises if they fail."""
     device = torch.device(device)
     arch, params = model_spec(blocks)
     cuts = [f"corpus games = {games}", f"corpus envs = {envs}", f"corpus max_ply = {max_ply}",
             f"sl steps = {steps} at B={batch}, {big_steps} at B={big_batch} (1 epoch each, "
             "on the first steps * B positions of the training split)",
             f"eval positions = {eval_positions}",
+            f"probe: 3 steps at B={probe_rows} on one batch",
             f"transition SL positions = {transition_positions} (sl_epochs = 1, "
             f"sl_batch_size = {batch})"]
     if blocks is not None:
@@ -311,6 +344,8 @@ def run_sl(device: torch.device | str, tmp: str, *, games: int = 256, envs: int 
     res["train_big"]["busy"] = step_busy(trainer, ds, train_idx, f"{label} busy",
                                          busy_steps)
     del trainer
+    if probe_rows:
+        res["probe"] = probe_batch(device, ds, arch, params, probe_rows, strict=True)
 
     # -- transition ----------------------------------------------------------------
     sub = os.path.join(tmp, "transition_shards")
@@ -397,8 +432,10 @@ def main(argv=None) -> int:
     parser.add_argument("--rl-batch", type=int, default=256)
     parser.add_argument("--blocks", type=int, default=None)
     parser.add_argument("--busy-steps", type=int, default=0)
-    parser.add_argument("--probe-batch", type=int, default=None,
-                        help="only one SL step at this many rows on a fresh corpus")
+    parser.add_argument("--probe-rows", type=int, default=4096)
+    parser.add_argument("--probe-batch", type=int, nargs="+", default=None,
+                        help="only SL steps at these many rows on a fresh corpus, each "
+                        "with and without the per-block recompute")
     args = parser.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:
         if args.probe_batch is not None:
@@ -407,15 +444,17 @@ def main(argv=None) -> int:
                             device=args.device)
             prepare_sl_data([corpus], shards, device=args.device)
             arch, params = model_spec(args.blocks)
-            probe_batch(torch.device(args.device), SLDataset(shards), arch, params,
-                        args.probe_batch)
+            for batch in args.probe_batch:
+                for recompute in (True, False):
+                    probe_batch(torch.device(args.device), SLDataset(shards), arch, params,
+                                batch, recompute=recompute)
             return 0
         run_sl(args.device, tmp, games=args.games, envs=args.envs, max_ply=args.max_ply,
                steps=args.steps, batch=args.batch, big_batch=args.big_batch,
                big_steps=args.big_steps, eval_positions=args.eval_positions,
                transition_positions=args.transition_positions, rl_games=args.rl_games,
                rl_steps=args.rl_steps, rl_batch=args.rl_batch, blocks=args.blocks,
-               busy_steps=args.busy_steps)
+               busy_steps=args.busy_steps, probe_rows=args.probe_rows)
     return 0
 
 

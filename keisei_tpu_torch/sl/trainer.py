@@ -34,6 +34,15 @@ from .dataset import SLDataset
 
 logger = logging.getLogger(__name__)
 
+# Above this many rows a step recomputes each trunk block in its backward
+# (models/se_resnet.py, `recompute_blocks`) in place of keeping the block's
+# activations. b40c256 on an H100 80GB (700 W), without it: 2,048 rows peak
+# at 57.60 GB, 4,096 (sl_to_rl's default) run out of memory at 83.67 GB; with
+# it 4,096 rows peak at 12.25 GB, at 1.25x the time a row
+# (scripts/sl_smoke.py --probe-batch 1024 2048 4096). Steps of at most this
+# many rows keep every activation, as before.
+RECOMPUTE_ABOVE = 2048
+
 
 @dataclass(frozen=True)
 class SLConfig:
@@ -76,7 +85,7 @@ class SLTrainer:
         if self.contract != "katago":
             raise NotImplementedError(
                 "the SL trainer's scalar contract is not yet ported to keisei_tpu_torch "
-                "(ROADMAP queue A item 11: the scalar-contract models)")
+                "(ROADMAP queue A item 7: the scalar-contract models)")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 matmuls and convs in full f32, as the JAX reference computes
@@ -129,8 +138,8 @@ class SLTrainer:
     def _train_step(self, b: dict[str, torch.Tensor]) -> torch.Tensor:
         cfg = self.config
         self.model.train()
-        out = self.model(b["obs"])
         B = b["obs"].shape[0]
+        out = self.model(b["obs"], recompute_blocks=B > RECOMPUTE_ABOVE)
         logp = F.log_softmax(out.policy_logits.reshape(B, -1).float(), dim=-1)
         policy_loss = -torch.gather(logp, 1, b["policy"][:, None])[:, 0].mean()
         vlogp = F.log_softmax(out.value_logits.float(), dim=-1)

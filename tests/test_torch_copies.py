@@ -131,13 +131,36 @@ REPO = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("path", ["league/tiers.py", "league/scheduler.py",
                                   "league/historical.py", "db/league_tables.py",
                                   "league/features.py", "league/style.py", "db/queue.py",
-                                  "db/analytics.py", "sl/parsers.py", "sl/dataset.py"])
+                                  "db/analytics.py", "sl/parsers.py", "sl/dataset.py",
+                                  "db/showcase.py", "db/core.py", "db/telemetry.py",
+                                  "server/__init__.py", "server/app.py",
+                                  "server/ws_protocol.py", "server/protocol_spec.py",
+                                  "server/static/index.html", "server/static/app.js",
+                                  "server/static/lib.js", "server/static/style.css",
+                                  "showcase/__init__.py"])
 def test_league_copies_are_byte_identical(path):
     """Framework-free modules copied whole: their relative imports resolve to
     the port's own store, match and db, so not even an import line differs
-    (the SL parsers and shard format too: standard library and numpy only)."""
+    (the SL parsers and shard format too: standard library and numpy only;
+    the dashboard server and the page it serves: the standard library, db
+    and db.showcase)."""
     ours = (REPO / "keisei_tpu_torch" / path).read_bytes()
     assert ours == (REPO / "keisei_tpu" / path).read_bytes()
+
+
+def test_db_package_reexports_what_the_jax_package_does():
+    """db/__init__.py is the original's import statements and __all__ under
+    a docstring of the port's own."""
+    import ast
+
+    def body(path):
+        tree = ast.parse((REPO / path).read_text())
+        return [ast.dump(node) for node in tree.body[1:]]
+
+    assert body("keisei_tpu_torch/db/__init__.py") == body("keisei_tpu/db/__init__.py")
+    from keisei_tpu_torch import db as port_db
+
+    assert port_db.__all__ == jax_db.__all__
 
 
 def _same_source(port_mod, orig_mod, names):
@@ -232,7 +255,7 @@ def test_flat_action_tables_equal_the_originals():
         assert _equal(getattr(vec_env, name), getattr(jax_vec_env, name)), name
 
 
-def test_dynamic_update_path_raises_until_the_tournament_is_ported(tmp_path):
+def test_dynamic_update_path_runs_and_refuses_the_scalar_contract(tmp_path):
     """The tournament is ported, and with it the Dynamic update path: none
     of record_rollout, _build_batch, maybe_update, _update_inner or
     _make_update_fn raises NotImplementedError any more; the gates and the

@@ -115,7 +115,7 @@ def test_cuda_kernels_refuse_cpu_fallback_on_other_devices():
         conv3x3_hwbc(x, torch.zeros(3, 3, 8, 128, dtype=torch.bfloat16, device="meta"))
 
 
-def test_int8_forward_not_yet_ported(tmp_path):
+def test_int8_forward_builds_and_refuses_an_undividable_batch(tmp_path):
     """rollout_forward="int8" is ported: it resolves to the quantized
     forward, and a batch the quantization tile cannot divide is refused when
     the trainer is built, not in its first rollout."""
@@ -131,7 +131,7 @@ def test_int8_forward_not_yet_ported(tmp_path):
     assert isinstance(trainer(32)._rollout_forward_fn("int8"), QuantizedForward)
 
 
-def test_league_mode_not_yet_ported(tmp_path):
+def test_league_mode_builds_and_refuses_what_is_not_ported(tmp_path):
     """League mode is ported, its tournament included: an enabled [league]
     builds a league trainer, and `tournament_enabled = true` builds its
     in-process tournament or, with `tournament_mode = "sidecar"`, its
@@ -218,6 +218,36 @@ def test_tournament_entry_points_default_to_the_card(monkeypatch, tmp_path, entr
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             evaluate.main(["--a", str(tmp_path), "--b", str(tmp_path)])
+
+
+@pytest.mark.parametrize("entry", ["SpectatorEnv", "ShowcaseRunner", "showcase_main"])
+def test_dashboard_feed_defaults_to_the_card(monkeypatch, tmp_path, entry):
+    """The spectator env, the showcase runner and its entry point (whose
+    `--device` defaults to `cuda`, where the JAX sidecar pins itself to
+    its CPU) resolve to the card unless told otherwise, and raise on a
+    machine without CUDA instead of running on the CPU."""
+    from keisei_tpu_torch.env.spectator import SpectatorEnv
+    from keisei_tpu_torch.showcase import runner
+
+    db, ldir = str(tmp_path / "l.db"), str(tmp_path / "l")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "SpectatorEnv":
+            SpectatorEnv()
+        elif entry == "ShowcaseRunner":
+            runner.ShowcaseRunner(db, ldir)
+        else:
+            runner.main(["--db", db, "--league-dir", ldir])
+    if entry == "SpectatorEnv":
+        assert SpectatorEnv(device="cpu").device == torch.device("cpu")
+    elif entry == "ShowcaseRunner":
+        assert runner.ShowcaseRunner(db, ldir, device="cpu").device == torch.device("cpu")
+    else:
+        ran = []
+        monkeypatch.setattr(runner.ShowcaseRunner, "run", lambda self: ran.append(self.device))
+        monkeypatch.setattr(runner.signal, "signal", lambda *a: None)  # keep pytest's handlers
+        runner.main(["--db", db, "--league-dir", ldir, "--device", "cpu", "--no-auto"])
+        assert ran == [torch.device("cpu")]
 
 
 def test_multi_device_not_yet_ported(tmp_path):

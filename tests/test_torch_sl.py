@@ -321,6 +321,45 @@ def test_evaluate_matches_jax_with_a_tie_at_the_fifth_logit(tmp_path):
         pt.evaluate(np.arange(5))
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_recomputed_sl_step_equals_the_plain_step(tmp_path, monkeypatch, dtype):
+    """Steps above RECOMPUTE_ABOVE rows recompute each trunk block in the
+    backward. With the threshold lowered below the batch, a recomputed epoch
+    (3 steps of 8 rows) equals the plain epoch bit for bit: the three losses
+    of every step, every parameter and every BatchNorm statistic. Each
+    BatchNorm moves its statistics once a step (an update is two in-place
+    ops, mul_ and add_, each a version bump of the buffer), while the
+    blocks start twice a step (the forward and the recompute, which stops
+    once it has what the backward needs)."""
+    from keisei_tpu_torch.models.se_resnet import FlaxBatchNorm
+    from keisei_tpu_torch.sl import trainer as T
+
+    ds_dir = _dataset(tmp_path / "ds", 24, seed=2)
+    runs = {}
+    for recompute in (False, True):
+        monkeypatch.setattr(T, "RECOMPUTE_ABOVE", 4 if recompute else 8)
+        tr = SLTrainer(SLConfig(batch_size=8, epochs=1, seed=5), "se_resnet",
+                       {**TINY, "dtype": dtype}, D.SLDataset(str(ds_dir)), device="cpu")
+        bns = [m for m in tr.model.modules() if isinstance(m, FlaxBatchNorm)]
+        before = [(bn.running_mean._version, bn.running_var._version) for bn in bns]
+        calls = []
+        tr.model.block0.register_forward_pre_hook(lambda *_: calls.append(1))
+        tr.train_epoch()
+        steps = len(tr.step_metrics)
+        assert steps == 3
+        for bn, (vm, vv) in zip(bns, before):
+            assert bn.running_mean._version - vm == bn.running_var._version - vv == 2 * steps
+        assert len(calls) == (2 if recompute else 1) * steps
+        runs[recompute] = (tr.step_metrics, tr.model.state_dict())
+    (plain_m, plain_sd), (re_m, re_sd) = runs[False], runs[True]
+    for a, b in zip(plain_m, re_m):
+        for k in ("policy_loss", "value_loss", "score_loss"):
+            assert a[k] == b[k], k
+    assert plain_sd.keys() == re_sd.keys()
+    for k, v in plain_sd.items():
+        assert torch.equal(v, re_sd[k]), k
+
+
 # -- the corpus generator ----------------------------------------------------------------
 
 

@@ -136,7 +136,7 @@ def test_explicit_resume_without_meta_raises(tmp_path):
 
 
 def test_scalar_contract_raises(sl_data):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         SLTrainer(SLConfig(), "mlp", {"hidden_sizes": [8]}, SLDataset(sl_data), device="cpu")
 
 
