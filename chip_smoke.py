@@ -20,8 +20,11 @@ training of b40c256, sl_to_rl and RL epochs with asynchronous saves, SL
 steps at 4,096 rows); phase 11 runs the dashboard feed
 (scripts/showcase_smoke.py: the spectator env on the card against the
 CPU's, an exhibition game of b40c256 through the showcase runner, a
-demonstrator game, the dashboard server's messages); no kernel lies on
-those four paths.
+demonstrator game, the dashboard server's messages); phase 12 runs data
+parallelism on the one card (scripts/parallel_smoke.py: two ranks sharing
+it over gloo train league and self-play b40c256 epochs, held bit-identical
+and to one process's gradient; NCCL at world size 1; the multi-device dry
+run); no kernel lies on those five paths.
 The 3x3 conv is checked on every route (wgmma fed by TMA for Cin % 64 == 0,
 the same kernel after a zero pad of the channels for the 50 observation
 planes, mma.sync with 1 / 2 / 4 boards per CTA), with the per-route launch
@@ -448,6 +451,43 @@ def feed_phase(dev, card_line: str) -> None:
         "demo_plies": r["demo"]["plies"], "server_messages": r["server"]["messages"],
         "phase11_s": round(time.monotonic() - t0, 1)}
     print(f"phase11 feed {json.dumps(summary)}")
+
+
+def parallel_phase(dev, card_line: str) -> None:
+    """Data parallelism on the one card (scripts/parallel_smoke.py): (a) two
+    ranks sharing it over gloo, 2 league epochs of
+    configs/katago-league-multihost.toml and 2 self-play epochs of
+    configs/katago-b40c256.toml at full width, cut in scale (64 global
+    games, 16 plies, batch 256), held bit-identical across ranks after each
+    epoch, with global counts, rank 1 writing nothing, the summed gradient
+    against one process's and the W=2 checkpoint resumed at W=1; (b) a
+    self-play epoch with its collectives on NCCL at world size 1, the
+    gradient bucket's all-reduce timed; (c) scripts/dryrun_multichip.py at
+    two ranks over gloo. The script raises if a check fails. No kernel lies
+    on this path: the JAX package refuses its Pallas forwards under a mesh
+    (keisei_tpu/training/loop.py:519-540), and one card measures no
+    multi-card speed."""
+    from keisei_tpu_torch.scripts import parallel_smoke
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = parallel_smoke.run_parallel(dev, tmp, label="phase12")
+    per_rank = {}
+    for row in r["a"]["rows"]:
+        per_rank.setdefault(row["rank"], []).append(
+            {k: round(row[k], 3) for k in ("rollout_s", "update_s", "peak_gb")})
+    b = r["b"]
+    summary = {
+        "card": card_line, "a_s": round(r["a"]["seconds"], 1), "per_rank_epochs": per_rank,
+        "grad": {name: {k: round(v, 6) for k, v in g.items()}
+                 for name, g in r["a"]["grad"].items()},
+        "b": {"backend": b["backend"], "bucket_mb": round(b["bucket_mb"], 1),
+              "bucket_all_reduce_ms": round(b["bucket_ms"], 3), "minibatches": b["minibatches"],
+              "collectives_per_epoch": b["collectives"],
+              "all_reduce_per_minibatch": b["all_reduce_per_minibatch"],
+              "update_s": round(b["update_s"], 3)},
+        "c_s": round(r["c"]["seconds"], 1), "phase12_s": round(time.monotonic() - t0, 1)}
+    print(f"phase12 parallel {json.dumps(summary)}")
 
 
 def main() -> int:
@@ -996,6 +1036,9 @@ def main() -> int:
 
     # -- phase 11: the dashboard feed on the card ------------------------------------------
     feed_phase(dev, card_line)
+
+    # -- phase 12: data parallelism on the one card ----------------------------------------
+    parallel_phase(dev, card_line)
 
     sources = {
         PADDED_STEM: ("keisei_tpu_torch/csrc/conv3x3_wgmma.cu", "keisei_tpu/ops/conv3x3.py:69"),

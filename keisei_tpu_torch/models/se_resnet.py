@@ -10,6 +10,9 @@ Numerics follow the flax model where PyTorch's defaults differ:
 - `FlaxBatchNorm` takes batch statistics as flax does (float32,
   var = E[x^2] - E[x]^2 clipped at 0, i.e. biased) and moves the running
   statistics by `0.9 * old + 0.1 * batch` (flax momentum 0.9, eps 1e-5);
+  under `synced_batch_stats` (the data-parallel update) E[x] and E[x^2]
+  are those of the global batch, summed over the ranks, as XLA makes them
+  global under the JAX package's mesh;
 - the global pool's std is the population std with 1e-10 inside the sqrt;
 - compute runs in `params.dtype` (bfloat16 by default, via autocast),
   parameters and BatchNorm statistics stay float32, and value_fc2 /
@@ -22,6 +25,7 @@ Layout is NCHW inside; the policy logits leave as (B, 9, 9, 139).
 from __future__ import annotations
 
 import contextlib
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import torch
@@ -76,12 +80,21 @@ class FlaxBatchNorm(nn.Module):
         # False while a checkpointed block is recomputed in the backward:
         # the step's forward has moved the statistics already
         self.update_statistics = True
+        # (reduce, share) inside synced_batch_stats: the batch is this
+        # rank's `share` of a global batch, and `reduce` sums over the ranks
+        self.sync: tuple[Callable[[torch.Tensor], torch.Tensor], float] | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
             mean = xf.mean(dim=(0, 2, 3))
             mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            if self.sync is not None:
+                # the global E[x], E[x^2]: each rank's means weighted by its
+                # share of the rows, summed (differentiably) over the ranks;
+                # one rank (share 1.0) keeps the local values bit for bit
+                reduce, share = self.sync
+                mean, mean2 = reduce(torch.cat([mean, mean2]) * share).chunk(2)
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             if self.update_statistics:
                 with torch.no_grad():
@@ -150,6 +163,25 @@ def _statistics_frozen(module: nn.Module):
     finally:
         for bn in bns:
             bn.update_statistics = True
+
+
+@contextlib.contextmanager
+def synced_batch_stats(module: nn.Module,
+                       reduce: Callable[[torch.Tensor], torch.Tensor], share: float):
+    """`module`'s BatchNorm layers take the statistics of the global batch
+    in train mode: this rank holds `share` (its rows over the global rows)
+    of it, the other ranks the rest, and `reduce` sums a tensor over the
+    ranks, differentiably (parallel.mesh.all_reduce_sum). Every rank enters
+    the same forwards and backwards (one reduce per layer in each), so the
+    running statistics move identically on every rank."""
+    bns = [m for m in module.modules() if isinstance(m, FlaxBatchNorm)]
+    for bn in bns:
+        bn.sync = (reduce, share)
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.sync = None
 
 
 class SEResNetModel(nn.Module):

@@ -9,6 +9,15 @@ place. `checkpoint_payload(copy=True)` + `write_checkpoint` split a save
 into a device copy and a write that may run on another thread. Orbax
 checkpoints of the JAX package are not read; models/convert.py carries
 their weights over.
+
+Data parallelism: rank 0 writes, asynchronous saves included, and every
+rank loads. A checkpoint restores exactly at any number of ranks W:
+parameters, BatchNorm statistics and Adam state are the same on every
+rank. The generator it holds is the trainer's, which draws the update's
+permutations in the same state on every rank (and, on one rank, the
+rollout's noise too); every rank restores it. The ranks' own rollout
+generators at W > 1 are not stored: on resume, rank r's is seeded with
+process_seed(seed + epoch * W, r) (training/loop.py:_rank_generator).
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ Reads the same configs/*.toml files with the same sections, dataclasses,
 defaults and validation. Unknown keys are rejected per section; the
 torch-only reference knobs (use_amp, compile_mode, compile_dynamic) are
 accepted and ignored, as in the JAX package. `[league]` builds a
-LeagueConfig (league/config.py); an enabled league refuses what is not
-ported yet: a league over several devices.
+LeagueConfig (league/config.py). `[distributed] num_devices` counts ranks,
+one per card (parallel/distributed.py:rank_layout; training/loop.py:main
+starts them): 0 or 1 one process, -1 every visible card on every host, N
+N ranks.
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ class RunConfig:
 
 @dataclass(frozen=True)
 class DistributedConfig:
-    num_devices: int = 0  # 0 -> single device; multi-device is not ported yet
+    num_devices: int = 0  # 0/1 one rank; -1 every visible card; N ranks (one per card)
     data_axis: str = "data"
 
 
@@ -144,10 +146,6 @@ def config_from_dict(raw: dict, source: str = "<dict>") -> Config:
     distributed = _build(DistributedConfig, raw.get("distributed", {}), "distributed")
     league = league_config_from_dict(raw["league"]) if "league" in raw else None
     if league is not None and league.enabled:
-        if distributed.num_devices not in (0, 1):
-            raise NotImplementedError(
-                f"{source}: league mode over several devices is not yet ported to "
-                "keisei_tpu_torch (distributed.num_devices must be 0 or 1)")
         if not league.color_randomization:
             logger.warning(
                 "config: league.color_randomization=false biases learner color "

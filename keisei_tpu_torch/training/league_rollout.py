@@ -34,10 +34,19 @@ the last row, bootstrapped by the sign-corrected V(obs_T).
 The truncation bootstrap is a real branch: its extra forward runs only on
 plies where it is needed (a host-side check of one flag per ply, as in
 the self-play rollout).
+
+Data parallelism (`mesh`): rank r runs the columns of global envs
+[r N/W, (r+1) N/W) on an EnvCore of N/W envs. Every rule above is read in
+global indices (the opponent block of env e is e // (N/K), the compact
+path's halves are global [0, N/2) and [N/2, N)), a forward whose rows all
+lie on other ranks is skipped, and the ranks' trajectories concatenated in
+rank order are the single process's; `LeagueStats.summed` adds up their
+counts.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, replace
 from typing import Callable
 
@@ -124,23 +133,58 @@ class LeagueStats:
     opp_draws: list[int]     # (K,)
     parity_mismatch: int     # compact path: env-plies that broke the lock
 
+    def summed(self, mesh) -> "LeagueStats":
+        """The counts summed over the ranks of `mesh` (one all-reduce).
+        Itself on one rank."""
+        if mesh.group is None:
+            return self
+        K = len(self.opp_wins)
+        flat = [*dataclasses.astuple(self.base), *self.opp_wins, *self.opp_losses,
+                *self.opp_draws, self.parity_mismatch]
+        t = mesh.all_reduce_(torch.tensor(flat, dtype=torch.int64, device=mesh.device))
+        return _league_stats(t[:-1], K, int(t[-1]))
+
 
 def make_league_rollout(env_core: EnvCore, model: torch.nn.Module, adapter, num_steps: int,
-                        k_opp: int, color_randomization: bool = True):
+                        k_opp: int, color_randomization: bool = True, mesh=None):
     """rollout(opp_vars, env_states, obs, masks, learner_color, generator,
     sampler=None, recolor=None) -> ((env_states, obs, masks, learner_color),
     traj, next_value, stats).
 
     `opp_vars` is the K-stacked state dict (stack_cohort_variables), of
-    the learner's architecture. traj is (T/2 + 1, N) on the compact path,
-    (T + 1, N) on the dynamic path."""
-    if env_core.num_envs % k_opp != 0:
-        raise ValueError(f"num_envs {env_core.num_envs} must divide by cohort size {k_opp}")
+    the learner's architecture. traj is (T/2 + 1, n) on the compact path,
+    (T + 1, n) on the dynamic path, for the n = env_core.num_envs envs of
+    this rank of `mesh` (all N envs without one); stats count them."""
+    world, rank = (mesh.world_size, mesh.rank) if mesh is not None else (1, 0)
+    cols = _Columns(env_core.num_envs, rank, world, env_core.device)
+    if cols.N % k_opp != 0:
+        raise ValueError(f"num_envs {cols.N} must divide by cohort size {k_opp}")
     opp = opponent_module(model)
     if compact_supported(num_steps, k_opp, color_randomization):
-        return _make_compact_rollout(env_core, model, opp, adapter, num_steps, k_opp)
+        return _make_compact_rollout(env_core, model, opp, adapter, num_steps, k_opp, cols)
     return _make_dynamic_rollout(env_core, model, opp, adapter, num_steps, k_opp,
-                                 color_randomization)
+                                 color_randomization, cols)
+
+
+class _Columns:
+    """This rank's n columns among the N global envs: global index of each
+    column, and the local slice of a global range (empty when it lies on
+    other ranks)."""
+
+    def __init__(self, n: int, rank: int, world: int, dev):
+        self.n, self.N, self.offset = n, n * world, rank * n
+        self.global_index = torch.arange(self.offset, self.offset + n, device=dev)
+
+    def local(self, lo: int, hi: int) -> slice:
+        def clamp(g):
+            return min(max(g - self.offset, 0), self.n)
+
+        return slice(clamp(lo), clamp(hi))
+
+    def blocks(self, ks, B: int) -> list:
+        """(k, local slice) of each block k in `ks` with columns on this rank."""
+        out = [(k, self.local(k * B, (k + 1) * B)) for k in ks]
+        return [(k, sl) for k, sl in out if sl.stop > sl.start]
 
 
 class _Forwards:
@@ -192,9 +236,9 @@ def _write_row(traj: Trajectory, t: int, cols: slice, row: dict) -> None:
         getattr(traj, name)[t, cols] = value
 
 
-def _stat_counts(eo, done, r_l, pre_stm, K: int, B: int) -> torch.Tensor:
+def _stat_counts(eo, done, r_l, pre_stm, K: int, block: torch.Tensor) -> torch.Tensor:
     """(7 + 3K,) counts of one ply: RolloutStats' fields, then the learner's
-    wins, losses and draws per opponent block."""
+    wins, losses and draws per opponent block (`block`: each column's)."""
     term = eo.terminated
     l_win, l_loss, l_draw = term & (r_l > 0), term & (r_l < 0), term & (r_l == 0)
     win_b = ((eo.reward > 0) & (pre_stm == 0)) | ((eo.reward < 0) & (pre_stm == 1))
@@ -202,7 +246,9 @@ def _stat_counts(eo, done, r_l, pre_stm, K: int, B: int) -> torch.Tensor:
     base = torch.stack([
         done.sum(), (win_b & term).sum(), (win_w & term).sum(), l_draw.sum(), term.sum(),
         (eo.truncated & ~eo.terminated).sum(), torch.where(done, eo.ply_count, 0).sum()])
-    per_block = torch.stack([l_win, l_loss, l_draw]).reshape(3, K, B).sum(dim=2)
+    outcomes = torch.stack([l_win, l_loss, l_draw]).long()
+    per_block = torch.zeros(3, K, dtype=torch.int64, device=outcomes.device)
+    per_block.index_add_(1, block, outcomes)
     return torch.cat([base, per_block.reshape(-1)])
 
 
@@ -238,38 +284,41 @@ def _tail_row(pend: PendingState, deferred: bool) -> dict:
 
 
 def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_steps: int,
-                          k_opp: int):
-    N, C, A, dev = env_core.num_envs, env_core.num_channels, env_core.action_space, env_core.device
+                          k_opp: int, cols: _Columns):
+    n, C, A, dev = cols.n, env_core.num_channels, env_core.action_space, env_core.device
+    N = cols.N
     B = N // k_opp  # block size per opponent
     H = N // 2
     KH = k_opp // 2  # opponent blocks per env half
     T2 = num_steps // 2
-    # env half: 0 for [0, H), 1 for [H, N); the learner moves in half p at
-    # plies of parity p
-    b_env = (torch.arange(N, device=dev) >= H).int()
-    nan = torch.full((N,), float("nan"), device=dev)
+    # env half: 0 for global [0, H), 1 for [H, N); the learner moves in
+    # half p at plies of parity p
+    b_env = (cols.global_index >= H).int()
+    block = cols.global_index // B
+    nan = torch.full((n,), float("nan"), device=dev)
+    # per parity p: the learner half's local columns, the finalize half's,
+    # and the opponent blocks (of the other half) with columns here
+    learner_cols = [cols.local(p * H, (p + 1) * H) for p in (0, 1)]
+    finalize_cols = [cols.local((1 - p) * H, (2 - p) * H) for p in (0, 1)]
+    opp_blocks = [cols.blocks(range(KH, k_opp), B), cols.blocks(range(KH), B)]
 
     def sub_step(fw: _Forwards, p: int, ply: int, t2: int, traj, carry):
         """One ply at static parity p: the learner half [pH, (p+1)H) moves;
         the pendings the other half opened last ply finalize into row t2."""
         env_states, obs, masks, learner_color, pend, counts, mismatch = carry
-        lo, hi = p * H, (p + 1) * H
-        fs = slice((1 - p) * H, (2 - p) * H)  # the finalize half
+        ls, fs = learner_cols[p], finalize_cols[p]
         learner_to_move = b_env == p
 
-        a_l, logp_l, v_l = fw.learner(ply, obs[lo:hi], masks[lo:hi])
-        kb0 = KH if p == 0 else 0
-        a_opp = torch.cat([fw.opponent(ply, kb, obs[kb * B:(kb + 1) * B],
-                                       masks[kb * B:(kb + 1) * B])
-                           for kb in range(kb0, kb0 + KH)])
-        actions = torch.cat([a_l, a_opp]) if p == 0 else torch.cat([a_opp, a_l])
-
-        def full(x, fill=0):
-            out = torch.full((N,), fill, dtype=x.dtype, device=dev)
-            out[lo:hi] = x
-            return out
-
-        a_l_full, logp_l_full, v_l_full = full(a_l), full(logp_l), full(v_l)
+        actions = torch.zeros(n, dtype=torch.int64, device=dev)
+        a_l_full = torch.zeros(n, dtype=torch.int64, device=dev)
+        logp_l_full = torch.zeros(n, device=dev)
+        v_l_full = torch.zeros(n, device=dev)
+        if ls.stop > ls.start:  # no learner forward on a rank without its envs
+            a_l, logp_l, v_l = fw.learner(ply, obs[ls], masks[ls])
+            actions[ls] = a_l_full[ls] = a_l
+            logp_l_full[ls], v_l_full[ls] = logp_l, v_l
+        for kb, sl in opp_blocks[p]:
+            actions[sl] = fw.opponent(ply, kb, obs[sl], masks[sl])
 
         pre_stm = env_states.stm.int()
         mismatch = mismatch + (learner_to_move != (pre_stm == learner_color)).sum()
@@ -296,7 +345,7 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
         if bool((trunc & (fin | learner_to_move)).any()):
             tv_l = fw.value_to_learner(eo.terminal_obs, 1 - pre_stm, learner_color)
         else:
-            tv_l = torch.zeros(N, device=dev)
+            tv_l = torch.zeros(n, device=dev)
         slot_override = torch.where(pend.done, pend.override,
                                     torch.where(trunc & fin, tv_l, nan))
 
@@ -334,7 +383,7 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
         # 5. parity-locked color on episode end: the fresh game (stm = 0)
         # has the learner move iff next ply's parity is the env's half
         learner_color = torch.where(done, b_env ^ (1 - p), learner_color)
-        counts = counts + _stat_counts(eo, done, r_l, pre_stm, k_opp, B)
+        counts = counts + _stat_counts(eo, done, r_l, pre_stm, k_opp, block)
         return (env_states, eo.obs, eo.legal_mask, learner_color, pend, counts, mismatch)
 
     @torch.no_grad()
@@ -343,10 +392,10 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
                 recolor: Recolor | None = None):
         model.eval()
         fw = _Forwards(model, opp_model, adapter, opp_vars, generator, sampler, C)
-        traj = _empty_trajectory(T2 + 1, N, C, A, dev)
+        traj = _empty_trajectory(T2 + 1, n, C, A, dev)
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         carry = (env_states, obs, masks, learner_color.int(),
-                 init_pending(N, (C, 81), A, dev),
+                 init_pending(n, (C, 81), A, dev),
                  torch.zeros(7 + 3 * k_opp, dtype=torch.int64, device=dev), zero)
         for t2 in range(T2):
             # row t2: columns [H, N) finalize at parity 0, [0, H) at parity 1
@@ -357,7 +406,7 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
         # trailing row: the second half holds a pending opened at the final
         # ply; open ones are bootstrapped by V(obs_T) to the learner
         next_value = fw.value_to_learner(obs, env_states.stm.int(), learner_color)
-        _write_row(traj, T2, slice(0, N), _tail_row(pend, deferred=True))
+        _write_row(traj, T2, slice(0, n), _tail_row(pend, deferred=True))
         stats = _league_stats(counts, k_opp, int(mismatch))
         return (env_states, obs, masks, learner_color), traj, next_value, stats
 
@@ -370,10 +419,12 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
 
 
 def _make_dynamic_rollout(env_core: EnvCore, model, opp_model, adapter, num_steps: int,
-                          k_opp: int, color_randomization: bool):
-    N, C, A, dev = env_core.num_envs, env_core.num_channels, env_core.action_space, env_core.device
-    B = N // k_opp  # block size per opponent
-    nan = torch.full((N,), float("nan"), device=dev)
+                          k_opp: int, color_randomization: bool, cols: _Columns):
+    n, C, A, dev = cols.n, env_core.num_channels, env_core.action_space, env_core.device
+    B = cols.N // k_opp  # block size per opponent
+    block = cols.global_index // B
+    opp_blocks = cols.blocks(range(k_opp), B)
+    nan = torch.full((n,), float("nan"), device=dev)
 
     @torch.no_grad()
     def rollout(opp_vars: dict, env_states, obs, masks, learner_color,
@@ -381,17 +432,18 @@ def _make_dynamic_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
                 recolor: Recolor | None = None):
         model.eval()
         fw = _Forwards(model, opp_model, adapter, opp_vars, generator, sampler, C)
-        traj = _empty_trajectory(num_steps + 1, N, C, A, dev)
+        traj = _empty_trajectory(num_steps + 1, n, C, A, dev)
         learner_color = learner_color.int()
-        pend = init_pending(N, (C, 81), A, dev)
+        pend = init_pending(n, (C, 81), A, dev)
         counts = torch.zeros(7 + 3 * k_opp, dtype=torch.int64, device=dev)
         for t in range(num_steps):
             pre_stm = env_states.stm.int()
             learner_to_move = pre_stm == learner_color
 
             a_l, logp_l, v_l = fw.learner(t, obs, masks)
-            a_o = torch.cat([fw.opponent(t, i, obs[i * B:(i + 1) * B], masks[i * B:(i + 1) * B])
-                             for i in range(k_opp)])
+            a_o = torch.zeros(n, dtype=torch.int64, device=dev)
+            for k, sl in opp_blocks:
+                a_o[sl] = fw.opponent(t, k, obs[sl], masks[sl])
             actions = torch.where(learner_to_move, a_l, a_o)
 
             env_states, eo = env_core.step(env_states, actions)
@@ -417,7 +469,7 @@ def _make_dynamic_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
                 override = torch.where(trunc & valid_slot, tv_l, nan)
             else:
                 override = nan
-            _write_row(traj, t, slice(0, N), dict(
+            _write_row(traj, t, slice(0, n), dict(
                 obs=torch.where(fin_prior[:, None, None], pend.obs, obs),
                 actions=torch.where(fin_prior, pend.action, a_l),
                 log_probs=torch.where(fin_prior, pend.log_prob, logp_l),
@@ -446,13 +498,13 @@ def _make_dynamic_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
             )
             if color_randomization:  # re-roll the learner's color on episode end
                 new_color = (recolor(t) if recolor is not None else
-                             torch.rand(N, generator=generator, device=dev) < 0.5)
+                             torch.rand(n, generator=generator, device=dev) < 0.5)
                 learner_color = torch.where(done, new_color.to(dev).int(), learner_color)
-            counts += _stat_counts(eo, done, r_l, pre_stm, k_opp, B)
+            counts += _stat_counts(eo, done, r_l, pre_stm, k_opp, block)
             obs, masks = eo.obs, eo.legal_mask
 
         next_value = fw.value_to_learner(obs, env_states.stm.int(), learner_color)
-        _write_row(traj, num_steps, slice(0, N), _tail_row(pend, deferred=False))
+        _write_row(traj, num_steps, slice(0, n), _tail_row(pend, deferred=False))
         stats = _league_stats(counts, k_opp, 0)
         return (env_states, obs, masks, learner_color), traj, next_value, stats
 

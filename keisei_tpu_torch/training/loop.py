@@ -16,7 +16,15 @@ workers (league/worker.py).
 Run:  python -m keisei_tpu_torch.training.loop --config configs/katago-b40c256.toml \
           --device cuda
 
-Multi-device training is not ported yet and raises.
+Data parallelism (`[distributed] num_devices`, parallel/): `main` starts
+one rank per card (spawned processes, one per local card, on every host
+named by KEISEI_COORDINATOR / KEISEI_NUM_PROCESSES / KEISEI_PROCESS_ID).
+Each rank runs SelfPlayTrainer on its own N/W envs; the update computes
+the global batch's (training/ppo.py:PPOUpdate). Rank 0 alone owns the
+observer, the checkpoints and the league (store, pool, scheduler,
+Dynamic trainer, historical library, gauntlet, tournament, maintenance
+worker) and broadcasts each epoch's cohort, as process 0 does in the JAX
+package. One rank runs with no process group at all.
 """
 
 from __future__ import annotations
@@ -36,12 +44,18 @@ from ..engine.core import select_envs
 from ..env.vec_env import EnvCore
 from ..league.dynamic_trainer import DynamicTrainer
 from ..league.historical import HistoricalGauntlet, HistoricalLibrary
-from ..league.league_ops import record_epoch_results, stack_cohort_variables
+from ..league.league_ops import (record_epoch_results, stack_cohort_variables,
+                                 stacked_cohort_template)
 from ..league.scheduler import MatchScheduler, PriorityScorer, build_match_class_weights
 from ..league.store import OpponentStore, Role
 from ..league.tiers import TieredPool
 from ..league.tournament import LeagueTournament, TournamentDispatcher
 from ..models.registry import build_model, get_model_contract
+from ..parallel.distributed import (broadcast_from_main, free_port, get_distributed_context,
+                                    process_seed, rank_layout, setup_distributed,
+                                    teardown_distributed, torchrun_layout)
+from ..parallel.mesh import Mesh, make_mesh, replicate, shard_env_batch
+from ..parallel.placement import learner_device
 from ..utils.device import parse_device, resolve_device
 from .checkpoint import (META_NAME, checkpoint_payload, load_checkpoint, load_meta,
                          prune_checkpoints, write_checkpoint)
@@ -102,14 +116,23 @@ class EpochMetrics:
 
 
 class SelfPlayTrainer:
-    """Self-play (and league) trainer on one device."""
+    """Self-play (and league) trainer on one device, or one rank of a
+    data-parallel `mesh` (parallel/mesh.py) on its own N/W envs."""
 
     def __init__(self, config: Config, device: str | torch.device = "cuda",
-                 metrics_sink=None, observer=None, resume_from: str | None = None):
+                 metrics_sink=None, observer=None, resume_from: str | None = None,
+                 mesh: Mesh | None = None):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else Mesh(device=self.device)
+        if self.mesh.device != self.device:
+            raise ValueError(f"the mesh's device {self.mesh.device} is not the trainer's "
+                             f"{self.device}")
+        self.is_main = self.mesh.is_main
         self.metrics_sink = metrics_sink or (lambda m: None)
-        self.observer = observer or TrainingObserver(config.display.db_path)
+        # rank 0 alone writes the observability DB
+        self.observer = observer or TrainingObserver(
+            config.display.db_path if self.is_main else "")
         self._resume_from = resume_from
         tc = config.training
         if self.device.type == "cuda":
@@ -122,11 +145,10 @@ class SelfPlayTrainer:
             raise ValueError(
                 f"model obs_channels {config.model.params.get('obs_channels')} != env "
                 f"channels {self.num_channels} for observation_mode {tc.observation_mode!r}")
-        if config.distributed.num_devices not in (0, 1):
-            raise NotImplementedError("multi-device training is not yet ported "
-                                      "(distributed.num_devices must be 0 or 1)")
+        self._check_ranks()
 
-        self.env_core = EnvCore(tc.num_games, tc.max_ply, self.num_channels, self.device)
+        self.env_core = EnvCore(tc.num_games // self.mesh.world_size, tc.max_ply,
+                                self.num_channels, self.device)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(tc.seed)
             self.model, self.model_cfg = build_model(config.model.architecture,
@@ -151,12 +173,12 @@ class SelfPlayTrainer:
                                  f"opponents_per_epoch {self.K}")
             self._rollout = make_league_rollout(
                 self.env_core, self.model, self.adapter, self.T, self.K,
-                color_randomization=config.league.color_randomization)
+                color_randomization=config.league.color_randomization, mesh=self.mesh)
         else:
             self._rollout = make_selfplay_rollout(
                 self.env_core, self.model, self.adapter, self.T,
                 forward_fn=self._rollout_forward_fn(tc.rollout_forward))
-        self._update = make_ppo_update(self.model, self.adapter, ap, self.optimizer)
+        self._update = make_ppo_update(self.model, self.adapter, ap, self.optimizer, self.mesh)
         self.lr_sched = PlateauScheduler(factor=tc.lr_plateau_factor,
                                          patience=tc.lr_plateau_patience, min_lr=tc.lr_min)
         self.generator = torch.Generator(device=self.device)
@@ -168,8 +190,12 @@ class SelfPlayTrainer:
         self._ckpt_executor = None
         self._ckpt_future = None
         self._maybe_resume()
+        self.rollout_generator = self._rank_generator()
+        if self.mesh.group is not None:
+            self._replicate()
         self.total_episodes = 0
         self.total_ply = 0
+        self.rollout_stats_local = None  # this rank's counts of the last rollout
 
         # league maintenance runs FIFO on one worker (snapshot before the
         # gauntlet that should see it); a backlog is bounded in
@@ -179,9 +205,57 @@ class SelfPlayTrainer:
         self._maint_phase_s: dict[str, float] = {}  # worker seconds per phase
         if self.league_enabled:
             self._init_league()
-            if config.league.async_maintenance:
+            if self.is_main and config.league.async_maintenance:
                 self._maint_executor = ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix="keisei-league")
+
+    # -- ranks ---------------------------------------------------------------------
+
+    def _check_ranks(self) -> None:
+        """distributed.num_devices against the mesh this trainer runs on.
+        A request for several ranks never trains alone: without a mesh it
+        raises (main() starts the ranks)."""
+        tc = self.config.training
+        n, W = self.config.distributed.num_devices, self.mesh.world_size
+        if self.mesh.group is None:
+            cards = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            if n > 1 or (n == -1 and cards > 1):
+                raise ValueError(
+                    f"distributed.num_devices = {n} asks for {n if n > 1 else cards} ranks, "
+                    "one per card: start them with `python -m keisei_tpu_torch.training.loop` "
+                    "or give each rank's trainer its mesh; this trainer would train alone")
+        elif n not in (-1, W) and not (n in (0, 1) and W == 1):
+            raise ValueError(f"distributed.num_devices = {n} but the mesh has {W} ranks")
+        if tc.num_games % W:
+            raise ValueError(f"num_games {tc.num_games} must divide evenly over {W} ranks")
+        if W > 1 and tc.rollout_forward not in ("auto", "flax"):
+            raise ValueError(
+                f"rollout_forward={tc.rollout_forward!r} needs a single rank (the JAX package "
+                "refuses its Pallas forwards under a mesh); use auto or flax")
+
+    def _rank_generator(self) -> torch.Generator:
+        """The rollout's generator. One rank: the trainer's own (the one a
+        checkpoint holds). Several: rank r draws from its own generator,
+        seeded with process_seed(seed + epoch * W, r) (process_seed(seed, r)
+        at a fresh start), so that no two ranks, and no two resumes at the
+        same W, draw the same noise. The trainer's generator, in the same
+        state on every rank, draws the update's permutations."""
+        W = self.mesh.world_size
+        if W == 1:
+            return self.generator
+        g = torch.Generator(device=self.device)
+        g.manual_seed(process_seed(self.config.training.seed + self.epoch * W, self.mesh.rank))
+        return g
+
+    def _replicate(self) -> None:
+        """Every rank from rank 0's state: parameters, BatchNorm statistics
+        and Adam moments. The ranks must have resumed at the same epoch."""
+        epoch = broadcast_from_main(
+            {"epoch": torch.tensor([self.epoch], device=self.device)}, self.mesh)["epoch"]
+        if int(epoch) != self.epoch:
+            raise RuntimeError(f"rank {self.mesh.rank} resumed at epoch {self.epoch} and rank 0 "
+                               f"at {int(epoch)}: every rank must read the same checkpoint_dir")
+        replicate(self.mesh, self.model, self.optimizer)
 
     # -- league wiring -----------------------------------------------------------
 
@@ -190,13 +264,18 @@ class SelfPlayTrainer:
         library and gauntlet, the tournament (or its dispatcher), and the
         per-env learner colors."""
         lc = self.config.league
-        tc = self.config.training
-        n = tc.num_games
-        self.learner_color = self._fresh_colors(n)
+        self.learner_color = self._fresh_colors()
         self._cohort: list = []
         self._cohort_slot_ids = None
         self._cohort_key = None
         self._cohort_vars = None
+        if not self.is_main:
+            # rank 0 owns the league; the others receive its cohort
+            self.store = self.pool = self.scorer = self.scheduler = None
+            self.dyn_trainer = self.historical = self.gauntlet = None
+            self.tournament = self.dispatcher = None
+            self.learner_entry_id = None
+            return
 
         db_path = self.config.display.db_path or os.path.join(
             lc.storage.league_dir, "league.db")
@@ -252,14 +331,18 @@ class SelfPlayTrainer:
             latest = max(self.store.list_entries(), key=lambda e: (e.created_epoch, e.id))
             self.learner_entry_id = latest.id
 
-    def _fresh_colors(self, n: int) -> torch.Tensor:
-        """Learner colors for n fresh envs: the parity pattern on the
-        compact path, a draw with color randomization, else Black."""
+    def _fresh_colors(self) -> torch.Tensor:
+        """Learner colors for this rank's envs, fresh: the global parity
+        pattern's share on the compact path, a draw with color
+        randomization, else Black."""
         lc = self.config.league
+        n = self.env_core.num_envs
         if compact_supported(self.T, self.K, lc.color_randomization):
-            return parity_colors(n, self.device)
+            return shard_env_batch(
+                self.mesh, parity_colors(self.config.training.num_games, self.device))
         if lc.color_randomization:
-            return (torch.rand(n, generator=self.generator, device=self.device) < 0.5).int()
+            return (torch.rand(n, generator=self.rollout_generator, device=self.device)
+                    < 0.5).int()
         return torch.zeros(n, dtype=torch.int32, device=self.device)
 
     def _sample_cohort(self) -> list:
@@ -292,34 +375,46 @@ class SelfPlayTrainer:
         result to an entry that played only its tail: the blocks whose
         slot changed entries are reset instead (the boundary already
         bootstrapped those games' values). An update_count change of the
-        same entry keeps the games."""
-        self._cohort = self._sample_cohort()
-        ck = tuple((e.id, e.update_count) for e in self._cohort)
-        new_ids = tuple(e.id for e in self._cohort)
+        same entry keeps the games.
+
+        Several ranks: rank 0 samples; its (entry, update_count) keys, and
+        the stacked cohort when they change, are broadcast to every rank."""
+        keys = torch.zeros(self.K, 2, dtype=torch.int64, device=self.device)
+        if self.is_main:
+            self._cohort = self._sample_cohort()
+            keys = torch.tensor([(e.id, e.update_count) for e in self._cohort],
+                                dtype=torch.int64, device=self.device)
+        keys = broadcast_from_main({"keys": keys}, self.mesh)["keys"]
+        ck = tuple(map(tuple, keys.tolist()))
+        new_ids = tuple(entry_id for entry_id, _ in ck)
         old_ids = self._cohort_slot_ids
         if old_ids is not None and new_ids != old_ids:
             self._reset_swapped_blocks([k for k, (a, b) in enumerate(zip(old_ids, new_ids))
                                         if a != b])
         self._cohort_slot_ids = new_ids
         if self._cohort_key != ck:
-            self._cohort_vars = stack_cohort_variables(
-                self.store, self._cohort, self.model.state_dict(), dtype=torch.bfloat16)
+            sd = self.model.state_dict()
+            if self.is_main:
+                stacked = stack_cohort_variables(self.store, self._cohort, sd,
+                                                 dtype=torch.bfloat16)
+            else:
+                stacked = stacked_cohort_template(sd, self.K, dtype=torch.bfloat16)
+            self._cohort_vars = broadcast_from_main(stacked, self.mesh)
             self._cohort_key = ck
         return self._cohort_vars
 
     def _reset_swapped_blocks(self, slots: list[int]) -> None:
         """Restart the env blocks whose cohort slot changed entries (the
-        truncation path), and give them fresh learner colors."""
+        truncation path), and give them fresh learner colors. Blocks are
+        global: env e is in block e // (N/K), on whichever rank holds it."""
         if not slots:
             return
         N = self.config.training.num_games
-        B = N // self.K
-        mask = torch.zeros(N, dtype=torch.bool, device=self.device)
-        for k in slots:
-            mask[k * B:(k + 1) * B] = True
+        block = shard_env_batch(self.mesh, torch.arange(N, device=self.device)) // (N // self.K)
+        mask = torch.isin(block, torch.tensor(slots, device=self.device))
         fresh = self.env_core.init()
         self.env_carry = tuple(select_envs(mask, f, c) for f, c in zip(fresh, self.env_carry))
-        self.learner_color = torch.where(mask, self._fresh_colors(N), self.learner_color)
+        self.learner_color = torch.where(mask, self._fresh_colors(), self.learner_color)
         logger.debug("cohort swap: reset %d env blocks %s", len(slots), slots)
 
     def _rollout_forward_fn(self, mode: str):
@@ -400,8 +495,12 @@ class SelfPlayTrainer:
         checkpoint thread. One write is in flight at a time: every save
         waits for the one before, and a failed write raises there."""
         d = self.config.training.checkpoint_dir
-        os.makedirs(d, exist_ok=True)
         path = path or os.path.join(d, f"epoch_{self.epoch:06d}")
+        if not self.is_main:
+            # rank 0 writes; a blocking save returns with the file on disk everywhere
+            if blocking and self.mesh.group is not None:
+                self.mesh.barrier()
+            return path
         meta = dict(epoch=self.epoch, architecture=self.config.model.architecture,
                     extra_meta={
                         "learning_rate": get_learning_rate(self.optimizer),
@@ -410,12 +509,15 @@ class SelfPlayTrainer:
                         "lr_plateau_bad_epochs": self.lr_sched.bad_epochs,
                     })
         keep = self.config.training.checkpoint_keep
+        os.makedirs(d, exist_ok=True)
         self._drain_checkpoint()
         payload = checkpoint_payload(self.model, self.optimizer, self.generator,
                                      copy=not blocking)
         if blocking:
             write_checkpoint(path, payload, **meta)
             prune_checkpoints(d, keep)
+            if self.mesh.group is not None:
+                self.mesh.barrier()
             return path
 
         def write() -> None:
@@ -468,8 +570,10 @@ class SelfPlayTrainer:
         if self.league_enabled:
             opp_vars = self._cohort_for_epoch()
             carry, traj, next_value, league_stats = self._rollout(
-                opp_vars, *self.env_carry, self.learner_color, self.generator)
+                opp_vars, *self.env_carry, self.learner_color, self.rollout_generator)
             *carry, self.learner_color = carry
+            self.rollout_stats_local = league_stats
+            league_stats = league_stats.summed(self.mesh)
             stats = league_stats.base
             if league_stats.parity_mismatch:
                 logger.warning(
@@ -477,7 +581,10 @@ class SelfPlayTrainer:
                     "learner/opponent actions went to the wrong seat",
                     league_stats.parity_mismatch)
         else:
-            carry, traj, next_value, stats = self._rollout(*self.env_carry, self.generator)
+            carry, traj, next_value, stats = self._rollout(*self.env_carry,
+                                                           self.rollout_generator)
+            self.rollout_stats_local = stats
+            stats = stats.summed(self.mesh)
         self.env_carry = tuple(carry)
         self._sync()
         t1 = time.monotonic()
@@ -513,7 +620,9 @@ class SelfPlayTrainer:
             rollout_time=t1 - t0, update_time=t2 - t1, maint_time=t3 - t2, **metrics)
         self.metrics_sink(em.as_dict())
         self.observer.on_epoch(em.as_dict(), self.epoch * self.T, ckpt)
-        if self.observer.enabled:
+        # rank 0's first envs are the global first; across hosts the JAX
+        # package skips the snapshot, and so does the port
+        if self.observer.enabled and self.mesh.single_host:
             self._snapshot()
         return em
 
@@ -526,7 +635,10 @@ class SelfPlayTrainer:
         detached copy of every state-dict tensor (bf16 where
         storage.snapshot_dtype says so), taken before the next update
         changes the parameters in place. The rest runs FIFO on the
-        maintenance worker and overlaps the next epoch."""
+        maintenance worker and overlaps the next epoch. Rank 0 only: the
+        other ranks own no league."""
+        if self.store is None:
+            return
         lc = self.config.league
         epoch = self.epoch
         snapshot_due = epoch % lc.epochs_per_seat == 0 or epoch % lc.snapshot_interval == 0
@@ -673,7 +785,7 @@ class SelfPlayTrainer:
                 run_steps / max(time.monotonic() - wall0, 1e-9))
         self.drain_maintenance()
         self.save()  # drains the periodic write first; blocking
-        if self.league_enabled:
+        if self.league_enabled and self.store is not None:
             # queued async weight flushes land before exit; a failed final
             # flush is loud but does not abort the rest of the teardown
             try:
@@ -681,6 +793,39 @@ class SelfPlayTrainer:
             except RuntimeError:
                 logger.exception("final league weight flush failed")
         self.observer.on_stop("stopped")
+
+
+@dataclass(frozen=True)
+class RankLaunch:
+    """What a spawned rank needs to join the group and train."""
+
+    config: Config
+    epochs: int | None
+    coordinator: str
+    world_size: int
+    local_world_size: int
+    first_rank: int  # global rank of this host's local rank 0
+    platform: str    # "cuda" or "cpu"
+
+
+def _train_rank(local_rank: int, launch: RankLaunch) -> None:
+    """One rank: join the group, train on cuda:<local_rank> (or the CPU),
+    leave the group."""
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s", force=True)
+    device = learner_device(launch.platform, local_rank)
+    setup_distributed(launch.coordinator, world_size=launch.world_size,
+                      rank=launch.first_rank + local_rank, device=device)
+    try:
+        mesh = make_mesh(launch.config.distributed.num_devices, device=device,
+                         local_rank=local_rank, local_world_size=launch.local_world_size)
+        trainer = SelfPlayTrainer(launch.config, device=device, mesh=mesh)
+        try:
+            trainer.run(launch.epochs)
+        finally:
+            trainer.close()
+    finally:
+        teardown_distributed()
 
 
 def main(argv=None):
@@ -693,7 +838,9 @@ def main(argv=None):
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--steps-per-epoch", type=int, default=None)
     parser.add_argument("--seed", type=int, default=None)
-    parser.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda, cuda:N or cpu; with several ranks (distributed.num_devices) "
+                        "cuda or cpu, rank i taking its host's cuda:i")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s", force=True)
@@ -703,8 +850,28 @@ def main(argv=None):
         tc = replace(tc, steps_per_epoch=args.steps_per_epoch)
     if args.seed is not None:
         tc = replace(tc, seed=args.seed)
-    trainer = SelfPlayTrainer(replace(config, training=tc), device=args.device)
-    trainer.run(args.epochs)
+    config = replace(config, training=tc)
+    device = torch.device(args.device)
+    ctx = get_distributed_context()
+    if ctx.auto:  # a launcher (torchrun) started one process per rank
+        coordinator, world, local, first_rank, local_rank = torchrun_layout()
+        _train_rank(local_rank, RankLaunch(config, args.epochs, coordinator, world, local,
+                                           first_rank, device.type))
+        return
+    world, local = rank_layout(config.distributed.num_devices, ctx, device.type)
+    if world == 1:
+        SelfPlayTrainer(config, device=device).run(args.epochs)
+        return
+    if device.index is not None:
+        raise ValueError(f"--device {args.device} names one card; with {world} ranks rank i "
+                         "takes cuda:i of its host (pass --device cuda)")
+    launch = RankLaunch(config, args.epochs, ctx.coordinator or f"localhost:{free_port()}",
+                        world, local, ctx.process_id * local, device.type)
+    if local == 1:
+        _train_rank(0, launch)
+    else:
+        torch.multiprocessing.start_processes(_train_rank, args=(launch,), nprocs=local,
+                                              start_method="spawn")
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@ Clipped surrogate, W/D/L cross-entropy with ignore-index, score MSE,
 legal-only entropy, global advantage normalisation (population std),
 global-norm gradient clipping exactly as optax.clip_by_global_norm
 (g * max_norm / ||g|| when ||g|| >= max_norm, no epsilon) and Adam with the
-optax defaults. The update mutates the model and optimizer in place.
+optax defaults. The update mutates the model and optimizer in place; over
+a mesh of ranks it computes the single process's update on the global
+batch (PPOUpdate).
 A league trajectory (`Trajectory.valid` set) takes the sparse branch:
 masked GAE, the weighted mean and population variance of the
 advantages with empty slots zeroed, and sample weights in every loss.
@@ -12,13 +14,19 @@ advantages with empty slots zeroed, and sample weights in every loss.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
+from collections import defaultdict
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
+from ..models.se_resnet import synced_batch_stats
+from ..parallel.mesh import GradientBucket, Mesh, all_reduce_sum
 from .gae import compute_gae, compute_gae_masked
-from .value_adapter import MultiHeadValueAdapter
+from .value_adapter import MinibatchCounts, MultiHeadValueAdapter
 
 SCORE_NORMALIZATION = 76.0  # shared with the SL pipeline (keisei_tpu/sl/dataset.py)
 ILLEGAL_LOGIT = -1e9
@@ -138,55 +146,71 @@ def masked_policy_sample(out, legal_masks: torch.Tensor, adapter: MultiHeadValue
     return actions, log_probs, adapter.scalar_value_blended(out)
 
 
-def make_ppo_update(model: torch.nn.Module, adapter: MultiHeadValueAdapter,
-                    cfg: KataGoPPOParams, optimizer: torch.optim.Optimizer):
+def gather_trajectory(traj: Trajectory, next_value: torch.Tensor,
+                      mesh: Mesh) -> tuple[Trajectory, torch.Tensor]:
+    """The global (T, N) trajectory and (N,) next values on every rank,
+    from each rank's (T, N/W) columns in rank order: one all-gather per
+    dtype of the fields packed side by side (booleans travel as bytes),
+    and one for the next values."""
+    T, n = traj.rewards.shape
+    present = {f.name: getattr(traj, f.name) for f in dataclasses.fields(Trajectory)
+               if getattr(traj, f.name) is not None}
+    by_dtype = defaultdict(list)
+    for name, t in present.items():
+        x = t.view(torch.uint8) if t.dtype == torch.bool else t
+        by_dtype[x.dtype].append((name, x.reshape(T, n, -1)))
+    gathered = {}
+    for items in by_dtype.values():
+        full = mesh.all_gather(torch.cat([x for _, x in items], dim=2), dim=1)
+        for (name, _), part in zip(items, full.split([x.shape[2] for _, x in items], dim=2)):
+            src = present[name]
+            part = part.reshape((T, n * mesh.world_size) + src.shape[2:])
+            gathered[name] = part.view(torch.bool) if src.dtype == torch.bool else part
+    return Trajectory(**gathered), mesh.all_gather(next_value, dim=0)
+
+
+class PPOUpdate:
     """update(traj, next_value, generator, entropy_coeff, perms=None) ->
     metrics dict of floats. GAE -> advantage normalisation -> epochs x
     minibatches. Samples past the last full minibatch of each epoch's
     permutation are dropped; `perms` (one index permutation of T*N per
-    epoch) replaces the generator's, so tests can fix the minibatches."""
-    params = [p for p in model.parameters() if p.requires_grad]
+    epoch) replaces the generator's, so tests can fix the minibatches.
 
-    def minibatch_step(mb: dict, entropy_coeff: float) -> torch.Tensor:
-        out = model(mb["obs"])
-        b = mb["obs"].shape[0]
-        logp_all = masked_log_softmax(out.policy_logits.reshape(b, -1), mb["legal_masks"])
-        new_logp = torch.gather(logp_all, 1, mb["actions"][:, None])[:, 0]
+    The W ranks of `mesh` (one with no mesh) together compute what one
+    process computes on the whole batch, as XLA does under the JAX
+    package's mesh: rank r takes rows [r B/W, (r+1) B/W) of every global
+    minibatch of B rows (unequal slices where W does not divide B), and
+    every mean divides by the global count (`MinibatchCounts`). In a
+    process group each rank's (T, N/W) trajectory is gathered once, so
+    GAE, the advantage normalisation and the permutation (a generator in
+    the same state on every rank) are global; BatchNorm takes the global
+    batch's statistics; and the gradients and loss terms are summed over
+    the ranks in one bucket before the clip. The norm, the Adam step and
+    the metrics are then the same on every rank. One rank takes every row
+    with share 1.0, which leaves its bits as they were."""
 
-        ratio = torch.exp(new_logp - mb["old_log_probs"])
-        adv = mb["advantages"]
-        surr1 = ratio * adv
-        surr2 = torch.clamp(ratio, 1 - cfg.clip_epsilon, 1 + cfg.clip_epsilon) * adv
-        probs = torch.exp(logp_all)
-        safe_logp = torch.where(mb["legal_masks"], logp_all, 0.0)
-        w = mb.get("weights")
-        if w is None:
-            policy_loss = -torch.minimum(surr1, surr2).mean()
-            entropy = (-(probs * safe_logp).sum(dim=-1)).mean()
-        else:
-            w_sum = torch.clamp(w.sum(), min=1.0)
-            policy_loss = -(torch.minimum(surr1, surr2) * w).sum() / w_sum
-            entropy = ((-(probs * safe_logp).sum(dim=-1)) * w).sum() / w_sum
+    def __init__(self, model: torch.nn.Module, adapter: MultiHeadValueAdapter,
+                 cfg: KataGoPPOParams, optimizer: torch.optim.Optimizer,
+                 mesh: Mesh | None = None):
+        self.model, self.adapter, self.cfg, self.optimizer = model, adapter, cfg, optimizer
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.mesh = mesh if mesh is not None else Mesh()
+        if cfg.batch_size < self.mesh.world_size:
+            raise ValueError(f"batch_size {cfg.batch_size} leaves a rank of "
+                             f"{self.mesh.world_size} without rows")
+        self.bucket = None
+        if self.mesh.group is not None:
+            self.bucket = GradientBucket(self.mesh, self.params, extra=4)
 
-        value_score_loss, score_loss = adapter.value_loss(
-            out, returns=mb["returns"], value_cats=mb["value_cats"],
-            score_targets=mb["score_targets"], sample_weight=w)
-        loss = cfg.lambda_policy * policy_loss + value_score_loss - entropy_coeff * entropy
-
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grad_norm = clip_by_global_norm_(params, cfg.grad_clip)
-        optimizer.step()
-        return torch.stack([policy_loss.detach(), value_score_loss.detach(),
-                            score_loss.detach(), entropy.detach(), grad_norm.detach()])
-
-    def update(traj: Trajectory, next_value: torch.Tensor,
-               generator: torch.Generator | None, entropy_coeff: float,
-               perms: list[torch.Tensor] | None = None) -> dict[str, float]:
+    def prepare(self, traj: Trajectory, next_value: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The (S, ...) global training data: advantages (normalised),
+        returns and the flattened trajectory fields."""
+        cfg = self.cfg
+        if self.mesh.group is not None:
+            traj, next_value = gather_trajectory(traj, next_value, self.mesh)
         T, N = traj.rewards.shape
         S = T * N
-        n_mb = S // cfg.batch_size
-        if n_mb == 0:
+        if S // cfg.batch_size == 0:
             raise ValueError(
                 f"batch_size {cfg.batch_size} exceeds the {S}-sample trajectory; no "
                 "minibatch would run — lower algorithm_params.batch_size or raise "
@@ -224,8 +248,70 @@ def make_ppo_update(model: torch.nn.Module, adapter: MultiHeadValueAdapter,
         }
         if weights is not None:
             data["weights"] = weights
-        dev = traj.rewards.device
-        model.train()
+        return data
+
+    def backward(self, data: dict[str, torch.Tensor], ix: torch.Tensor,
+                 entropy_coeff: float) -> torch.Tensor:
+        """Forward and backward of this rank's rows of the global minibatch
+        `ix`; in a process group the gradients (in .grad) and the loss terms
+        are then summed over the ranks. Returns the minibatch's (policy,
+        value + score, score, entropy) losses."""
+        cfg, mesh = self.cfg, self.mesh
+        B = ix.shape[0]
+        lo = mesh.rank * B // mesh.world_size
+        hi = (mesh.rank + 1) * B // mesh.world_size
+        w = data.get("weights")
+        valid = data["value_cats"][ix] >= 0
+        if w is not None:
+            valid = valid & (w[ix] > 0)
+        counts = MinibatchCounts(
+            share=(hi - lo) / B, n_valid=valid.sum(),
+            weight_sum=None if w is None else torch.clamp(w[ix].sum(), min=1.0))
+        mb = {k: v[ix[lo:hi]] for k, v in data.items()}
+        sync = contextlib.nullcontext()
+        if mesh.group is not None:
+            sync = synced_batch_stats(self.model, functools.partial(all_reduce_sum, mesh=mesh),
+                                      counts.share)
+        with sync:
+            out = self.model(mb["obs"])
+        b = mb["obs"].shape[0]
+        logp_all = masked_log_softmax(out.policy_logits.reshape(b, -1), mb["legal_masks"])
+        new_logp = torch.gather(logp_all, 1, mb["actions"][:, None])[:, 0]
+
+        ratio = torch.exp(new_logp - mb["old_log_probs"])
+        adv = mb["advantages"]
+        surr1 = ratio * adv
+        surr2 = torch.clamp(ratio, 1 - cfg.clip_epsilon, 1 + cfg.clip_epsilon) * adv
+        probs = torch.exp(logp_all)
+        safe_logp = torch.where(mb["legal_masks"], logp_all, 0.0)
+        w = mb.get("weights")
+        if w is None:
+            policy_loss = -torch.minimum(surr1, surr2).mean() * counts.share
+            entropy = (-(probs * safe_logp).sum(dim=-1)).mean() * counts.share
+        else:
+            policy_loss = -(torch.minimum(surr1, surr2) * w).sum() / counts.weight_sum
+            entropy = ((-(probs * safe_logp).sum(dim=-1)) * w).sum() / counts.weight_sum
+
+        value_score_loss, score_loss = self.adapter.value_loss(
+            out, returns=mb["returns"], value_cats=mb["value_cats"],
+            score_targets=mb["score_targets"], sample_weight=w, counts=counts)
+        loss = cfg.lambda_policy * policy_loss + value_score_loss - entropy_coeff * entropy
+        loss.backward()
+        losses = torch.stack([policy_loss.detach(), value_score_loss.detach(),
+                              score_loss.detach(), entropy.detach()])
+        if self.bucket is not None:
+            losses = self.bucket.all_reduce(losses)
+        return losses
+
+    def __call__(self, traj: Trajectory, next_value: torch.Tensor,
+                 generator: torch.Generator | None, entropy_coeff: float,
+                 perms: list[torch.Tensor] | None = None) -> dict[str, float]:
+        cfg = self.cfg
+        data = self.prepare(traj, next_value)
+        S = data["advantages"].shape[0]
+        n_mb = S // cfg.batch_size
+        dev = data["advantages"].device
+        self.model.train()
         rows = []
         for epoch in range(cfg.epochs_per_batch):
             if perms is not None:
@@ -234,12 +320,22 @@ def make_ppo_update(model: torch.nn.Module, adapter: MultiHeadValueAdapter,
                 perm = torch.randperm(S, generator=generator, device=dev)
             idx = perm[: n_mb * cfg.batch_size].reshape(n_mb, cfg.batch_size)
             for ix in idx:
-                rows.append(minibatch_step({k: v[ix] for k, v in data.items()}, entropy_coeff))
+                self.optimizer.zero_grad(set_to_none=True)
+                losses = self.backward(data, ix, entropy_coeff)
+                grad_norm = clip_by_global_norm_(self.params, cfg.grad_clip)
+                self.optimizer.step()
+                rows.append(torch.cat([losses, grad_norm.detach()[None]]))
         means = torch.stack(rows).mean(dim=0).tolist()
         return dict(zip(("policy_loss", "value_loss", "score_loss", "entropy",
                          "gradient_norm"), means))
 
-    return update
+
+def make_ppo_update(model: torch.nn.Module, adapter: MultiHeadValueAdapter,
+                    cfg: KataGoPPOParams, optimizer: torch.optim.Optimizer,
+                    mesh: Mesh | None = None) -> PPOUpdate:
+    """The PPO update of `model` (see PPOUpdate); it mutates the model and
+    the optimizer in place."""
+    return PPOUpdate(model, adapter, cfg, optimizer, mesh)
 
 
 def entropy_coeff_schedule(cfg: KataGoPPOParams, epoch: int, warmup_epochs: int = 0,

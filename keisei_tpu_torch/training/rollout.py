@@ -9,10 +9,15 @@ overrides handle truncation (-V(terminal_obs)) and ply alternation
 
 The truncation bootstrap is a real branch: the extra forward runs only on
 the plies where some env truncated (a host-side check of one flag per ply).
+
+Envs are independent, so a data-parallel rank runs this rollout on its own
+N/W envs with its own generator; the trainer sums the ranks' counts
+(`RolloutStats.summed`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
@@ -47,6 +52,14 @@ class RolloutStats:
     terminated: int
     truncated: int
     total_ply: int
+
+    def summed(self, mesh) -> "RolloutStats":
+        """The counts summed over the ranks of `mesh` (one all-reduce):
+        the epoch's counts over the global env batch. Itself on one rank."""
+        if mesh.group is None:
+            return self
+        t = torch.tensor(dataclasses.astuple(self), dtype=torch.int64, device=mesh.device)
+        return RolloutStats(*mesh.all_reduce_(t).tolist())
 
 
 # sampler(step, legal_masks) -> actions: replaces sampling (tests force actions)

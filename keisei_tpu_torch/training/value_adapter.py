@@ -14,6 +14,20 @@ from ..models.base import KataGoOutput
 
 
 @dataclass(frozen=True)
+class MinibatchCounts:
+    """The denominators of a global minibatch of which this rank computes
+    `share` of the rows (data parallelism; one rank: share 1.0 and its own
+    counts): the W/D/L labels counted (`n_valid`, int64) and, for a
+    weighted minibatch, clamp(sum of the weights, 1) (`weight_sum`). Each
+    rank's loss terms are then its part of the global means, and their sum
+    over the ranks is the global loss."""
+
+    share: float
+    n_valid: torch.Tensor
+    weight_sum: torch.Tensor | None = None
+
+
+@dataclass(frozen=True)
 class MultiHeadValueAdapter:
     lambda_value: float = 1.5
     lambda_score: float = 0.02
@@ -31,10 +45,12 @@ class MultiHeadValueAdapter:
         return v
 
     def value_loss(self, out: KataGoOutput, *, returns, value_cats, score_targets,
-                   sample_weight=None):
+                   counts: MinibatchCounts, sample_weight=None):
         """(weighted value + score loss, raw score loss). `sample_weight`
         (league trajectories: 0 on empty slots) drops its zero-weight
-        samples from the W/D/L mean and weights the score mean."""
+        samples from the W/D/L mean and weights the score mean. The means
+        divide by `counts`, those of the global minibatch of which these
+        rows are this rank's share."""
         del returns
         logits = out.value_logits.float()
         logp = F.log_softmax(logits, dim=-1)
@@ -43,15 +59,15 @@ class MultiHeadValueAdapter:
             valid = valid & (sample_weight > 0)
         cats = torch.clamp(value_cats, min=0).long()
         ce = -torch.gather(logp, 1, cats[:, None])[:, 0]
-        n_valid = valid.sum()
+        n_valid = counts.n_valid
         wdl = torch.where(valid, ce, 0.0).sum() / torch.clamp(n_valid, min=1)
         # graph-connected zero when no labels
         wdl = torch.where(n_valid > 0, wdl, logits.sum() * 0.0)
         sq = (out.score_lead[:, 0].float() - score_targets) ** 2
         if sample_weight is None:
-            score = sq.mean()
+            score = sq.mean() * counts.share
         else:
-            score = (sq * sample_weight).sum() / torch.clamp(sample_weight.sum(), min=1.0)
+            score = (sq * sample_weight).sum() / counts.weight_sum
         return self.lambda_value * wdl + self.lambda_score * score, score
 
 

@@ -561,3 +561,54 @@ def test_tiled_mm_matches_plain(dev, dtype, m, k, n):
         assert torch.equal(got, ref)
     else:
         assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_update_under_a_world_size_one_nccl_group_is_bit_equal(dev):
+    """The PPO update with its collectives on NCCL at world size 1 (the
+    BatchNorm moments through a differentiable all-reduce, the gradient
+    bucket, the trajectory's all-gathers) gives the bits of the update with
+    no group: losses, parameters, BatchNorm statistics, Adam moments.
+    cuDNN is made deterministic first, and two runs without a group must
+    agree, or the comparison would mean nothing."""
+    from _torch_parallel_ranks import trajectory
+
+    from keisei_tpu_torch.models.registry import build_model
+    from keisei_tpu_torch.parallel.distributed import (free_port, setup_distributed,
+                                                       teardown_distributed)
+    from keisei_tpu_torch.parallel.mesh import make_mesh
+    from keisei_tpu_torch.training import ppo as P
+    from keisei_tpu_torch.training.value_adapter import get_value_adapter
+
+    data, nv = trajectory(3, T=4, N=16, league=True)
+    perms = [torch.randperm(64, generator=torch.Generator().manual_seed(e)) for e in range(2)]
+
+    def run(mesh):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = build_model("se_resnet", {"num_blocks": 2, "channels": 64,
+                                               "global_pool_channels": 32})[0].to(dev)
+        cfg = P.KataGoPPOParams(batch_size=16, epochs_per_batch=2)
+        opt = P.make_optimizer(model, cfg)
+        traj = P.Trajectory(**{k: torch.from_numpy(v).to(dev) for k, v in data.items()})
+        metrics = P.make_ppo_update(model, get_value_adapter("katago"), cfg, opt, mesh)(
+            traj, torch.from_numpy(nv).to(dev), None, 0.01, perms=perms)
+        tensors = list(model.state_dict().values()) + [
+            v for st in opt.state.values() for v in st.values()]
+        return metrics, tensors
+
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        want, again = run(None), run(None)
+        setup_distributed(f"localhost:{free_port()}", world_size=1, rank=0, device=dev)
+        try:
+            mesh = make_mesh(1, device=dev)
+            got = run(mesh)
+        finally:
+            teardown_distributed()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    assert mesh.collectives["all_reduce"] > 0 and mesh.collectives["all_gather"] > 0
+    for other in (again, got):
+        assert other[0] == want[0]
+        assert all(torch.equal(a, b) for a, b in zip(other[1], want[1]))

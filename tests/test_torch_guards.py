@@ -1,6 +1,7 @@
 """Guards of the port: no JAX and nothing of the JAX package anywhere in
-keisei_tpu_torch or chip_smoke.py (the league's modules included), no
-silent device fallback, and clear refusals for what is not ported yet."""
+keisei_tpu_torch or chip_smoke.py (the league's and parallel/'s modules
+included), no silent device fallback, and clear refusals for what is not
+ported yet."""
 
 import ast
 import subprocess
@@ -135,9 +136,10 @@ def test_league_mode_builds_and_refuses_what_is_not_ported(tmp_path):
     """League mode is ported, its tournament included: an enabled [league]
     builds a league trainer, and `tournament_enabled = true` builds its
     in-process tournament or, with `tournament_mode = "sidecar"`, its
-    dispatcher. What is not ported yet still refuses: a league over several
-    devices, and the fused and int8 rollout forwards in league mode (the
-    reference refuses those too)."""
+    dispatcher. A league over several devices loads (the ranks are started
+    by the entry point, tests/test_torch_parallel.py); the fused and int8
+    rollout forwards in league mode still refuse (the reference refuses
+    those too)."""
     from keisei_tpu_torch.league.tournament import LeagueTournament, TournamentDispatcher
 
     league = {"opponents_per_epoch": 2, "tournament_enabled": False,
@@ -157,9 +159,9 @@ def test_league_mode_builds_and_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="device spec '1'"):
         SelfPlayTrainer(config_from_dict({"model": TINY_MODEL, "training": training, "league": {
             **league, "tournament_enabled": True, "tournament_device": "1"}}), device="cpu")
-    with pytest.raises(NotImplementedError, match="several devices"):
-        config_from_dict({"model": TINY_MODEL, "league": league,
-                          "distributed": {"num_devices": 2}})
+    several = config_from_dict({"model": TINY_MODEL, "league": league,
+                                "distributed": {"num_devices": 2}})
+    assert several.league.enabled and several.distributed.num_devices == 2
     with pytest.raises(ValueError, match="not supported in league mode"):
         SelfPlayTrainer(config_from_dict({
             "model": TINY_MODEL, "league": league,
@@ -251,9 +253,12 @@ def test_dashboard_feed_defaults_to_the_card(monkeypatch, tmp_path, entry):
 
 
 def test_multi_device_not_yet_ported(tmp_path):
+    """Multi-device training is ported (parallel/): num_devices = 4 asks
+    for four ranks, one per card, which the entry point starts; a trainer
+    built without its rank's mesh refuses instead of training alone."""
     cfg = config_from_dict({"model": TINY_MODEL, "distributed": {"num_devices": 4},
                             "training": {"checkpoint_dir": str(tmp_path)}})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="would train alone"):
         SelfPlayTrainer(cfg, device="cpu")
 
 
