@@ -5,15 +5,17 @@ For each forward (fused bf16, int8, auto = the eager model) and each
 number of games N, builds SelfPlayTrainer from configs/katago-b40c256.toml
 (T=16 plies, PPO batch 256, one PPO epoch per batch), runs one warm-up
 epoch and three timed epochs through `run_epoch` (medians printed, with
-the three rollout times sorted), then times the rollout's two parts apart
-with CUDA events: one forward of the trainer's rollout forward at B=N, and one
-`EnvCore.step` with random legal actions, also on the host clock up to its
-last launch (a step whose enqueue time equals its device time is
+the three rollout times sorted) with the program's tracer on
+(utils/tracing.py), and reads the rollout's two parts from the timed
+epochs' spans: the mean `forward` (the rollout forward at B=N) and
+`engine.step` (`EnvCore.step`), each in CUDA-event ms and in host ms up to
+its last launch (a step whose host time equals its device time is
 launch-bound). With --league, the same epochs of league mode instead:
 SelfPlayTrainer from configs/katago-league.toml (scripts/league_smoke.py's
 cuts, the config's own maintenance cadences: no snapshot falls in the
 timed epochs), K=4 on the compact path (one learner forward over N/2
-boards and two opponent forwards over N/4 each per ply).
+boards and two opponent forwards over N/4 each per ply), and the learner's
+`forward` and the `engine.step` read from their spans alike.
 
     python -m keisei_tpu_torch.scripts.profile_rollout [--games 64 256 1024]
                                                        [--forwards fused int8] [--league]
@@ -29,15 +31,13 @@ import dataclasses
 import os
 import sys
 import tempfile
-import time
 
 import torch
 
-from ..models.fused_infer import make_fused_forward, make_quantized_forward
 from ..training.config import load_config
 from ..training.loop import SelfPlayTrainer
-from ..training.rollout import EagerForward
-from ..utils.timing import card, cuda_ms
+from ..utils import tracing
+from ..utils.timing import card
 
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, os.pardir,
                       "configs", "katago-b40c256.toml")
@@ -45,18 +45,21 @@ STEPS = 16
 EPOCHS = 3  # timed epochs per (forward, N); the medians are printed
 
 
-def enqueue_ms(fn, iters: int = 20) -> float:
-    """Host time per call of fn() up to the last launch, before the device
-    is waited for. Beside cuda_ms: equal means the host (launches, syncs
-    inside fn) is what the device waits on."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    ms = (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize()
-    return ms
+def timed_epochs(trainer) -> tuple[list, dict]:
+    """EPOCHS epochs with the tracer on: their EpochMetrics, and the mean
+    device and host ms of their `forward` and `engine.step` spans."""
+    tracing.enable(events={"forward", "engine.step"})
+    try:
+        ems = [trainer.run_epoch() for _ in range(EPOCHS)]
+    finally:
+        tracing.disable()
+    spans = tracing.spans()
+    parts = {}
+    for name, key in (("forward", "forward"), ("engine.step", "step")):
+        mine = [s for s in spans if s["name"] == name]
+        parts[f"{key}_ms"] = sum(s["device_ms"] for s in mine) / len(mine)
+        parts[f"{key}_host_ms"] = sum(s["end_ns"] - s["start_ns"] for s in mine) / len(mine) / 1e6
+    return ems, parts
 
 
 def profile(forward: str, games: int, ckpt_dir: str) -> dict:
@@ -69,23 +72,10 @@ def profile(forward: str, games: int, ckpt_dir: str) -> dict:
                               display=dataclasses.replace(config.display, db_path=""))
     trainer = SelfPlayTrainer(cfg, device="cuda")
     trainer.run_epoch()  # warm-up: first calls, allocator, cuDNN autotuning
-    ems = [trainer.run_epoch() for _ in range(EPOCHS)]
+    ems, parts = timed_epochs(trainer)
     rollout_s = sorted(em.rollout_time for em in ems)
-    update_s = sorted(em.update_time for em in ems)
-
-    fwd = {"fused": make_fused_forward, "int8": make_quantized_forward,
-           "auto": lambda _: EagerForward()}[forward](trainer.model_cfg)
-    weights = fwd.prepare(trainer.model)
-    states, obs, masks = trainer.env_carry
-    obs = obs.reshape(games, -1, 9, 9)
-    forward_ms = cuda_ms(lambda: fwd(weights, obs))
-    g = torch.Generator(device="cuda").manual_seed(0)
-    actions = torch.multinomial(masks.float(), 1, generator=g)[:, 0]
-    step_ms = cuda_ms(lambda: trainer.env_core.step(states, actions))
-    step_host_ms = enqueue_ms(lambda: trainer.env_core.step(states, actions))
-    return {"rollout_s": rollout_s, "update_s": update_s,
-            "env_steps_per_s": games * STEPS / rollout_s[EPOCHS // 2],
-            "forward_ms": forward_ms, "step_ms": step_ms, "step_host_ms": step_host_ms,
+    return {"rollout_s": rollout_s, "update_s": sorted(em.update_time for em in ems),
+            "env_steps_per_s": games * STEPS / rollout_s[EPOCHS // 2], **parts,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -96,13 +86,18 @@ def profile_league(games: int, tmp: str, opponents: int = 4) -> dict:
                            every_epoch=False)
     trainer = SelfPlayTrainer(cfg, device="cuda")
     trainer.run_epoch()  # warm-up
-    ems = [trainer.run_epoch() for _ in range(EPOCHS)]
+    ems, parts = timed_epochs(trainer)
     trainer.drain_maintenance()
     rollout_s = sorted(em.rollout_time for em in ems)
     return {"rollout_s": rollout_s, "update_s": sorted(em.update_time for em in ems),
-            "env_steps_per_s": games * STEPS / rollout_s[EPOCHS // 2],
+            "env_steps_per_s": games * STEPS / rollout_s[EPOCHS // 2], **parts,
             "forwards_per_ply": 1 + opponents // 2, "rows": STEPS // 2 + 1,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def parts_line(r: dict) -> str:
+    return (f"forward_ms={r['forward_ms']:.3f} forward_host_ms={r['forward_host_ms']:.3f} "
+            f"env_step_ms={r['step_ms']:.3f} env_step_host_ms={r['step_host_ms']:.3f}")
 
 
 def main(argv=None) -> int:
@@ -127,7 +122,7 @@ def main(argv=None) -> int:
                   f"rollout_s={r['rollout_s'][EPOCHS // 2]:.4f} ({spread}) "
                   f"env_steps_per_s={r['env_steps_per_s']:.1f} "
                   f"forwards_per_ply={r['forwards_per_ply']} traj_rows={r['rows']} "
-                  f"update_s={r['update_s'][EPOCHS // 2]:.3f} "
+                  f"update_s={r['update_s'][EPOCHS // 2]:.3f} {parts_line(r)} "
                   f"peak_mem_gb={r['peak_mem_gb']:.2f}", flush=True)
         return 0
     for games in args.games:
@@ -139,8 +134,7 @@ def main(argv=None) -> int:
             print(f"profile_rollout forward={forward} N={games} T={STEPS} "
                   f"rollout_s={r['rollout_s'][EPOCHS // 2]:.4f} ({spread}) "
                   f"env_steps_per_s={r['env_steps_per_s']:.1f} "
-                  f"update_s={r['update_s'][EPOCHS // 2]:.3f} forward_ms={r['forward_ms']:.3f} "
-                  f"env_step_ms={r['step_ms']:.3f} env_step_enqueue_ms={r['step_host_ms']:.3f} "
+                  f"update_s={r['update_s'][EPOCHS // 2]:.3f} {parts_line(r)} "
                   f"peak_mem_gb={r['peak_mem_gb']:.2f}", flush=True)
     return 0
 

@@ -54,6 +54,7 @@ import torch
 from torch.func import functional_call
 
 from ..env.vec_env import EnvCore
+from ..utils import tracing
 from .ppo import SCORE_NORMALIZATION, Trajectory, compute_value_cats, masked_policy_sample
 from .rollout import RolloutStats
 
@@ -142,7 +143,8 @@ class LeagueStats:
         flat = [*dataclasses.astuple(self.base), *self.opp_wins, *self.opp_losses,
                 *self.opp_draws, self.parity_mismatch]
         t = mesh.all_reduce_(torch.tensor(flat, dtype=torch.int64, device=mesh.device))
-        return _league_stats(t[:-1], K, int(t[-1]))
+        with tracing.span("rollout.summed", sync=2):
+            return _league_stats(t[:-1], K, int(t[-1]))
 
 
 def make_league_rollout(env_core: EnvCore, model: torch.nn.Module, adapter, num_steps: int,
@@ -201,16 +203,21 @@ class _Forwards:
         return self.model(obs.reshape(-1, self.C, 9, 9))
 
     def learner(self, ply, obs, masks):
-        forced = self.sampler(ply, "learner", None, masks) if self.sampler else None
-        return masked_policy_sample(self.learner_out(obs), masks, self.adapter,
-                                    self.generator, actions=forced)
+        with tracing.span("forward", device=obs.device):
+            out = self.learner_out(obs)
+        with tracing.span("sample"):
+            forced = self.sampler(ply, "learner", None, masks) if self.sampler else None
+            return masked_policy_sample(out, masks, self.adapter, self.generator,
+                                        actions=forced)
 
     def opponent(self, ply, k, obs, masks):
-        out = functional_call(self.opp_model, self.slots[k],
-                              (obs.reshape(-1, self.C, 9, 9),), strict=True)
-        forced = self.sampler(ply, "opponent", k, masks) if self.sampler else None
-        return masked_policy_sample(out, masks, self.adapter, self.generator,
-                                    actions=forced)[0]
+        with tracing.span("forward.opponent", index=k):
+            out = functional_call(self.opp_model, self.slots[k],
+                                  (obs.reshape(-1, self.C, 9, 9),), strict=True)
+        with tracing.span("sample"):
+            forced = self.sampler(ply, "opponent", k, masks) if self.sampler else None
+            return masked_policy_sample(out, masks, self.adapter, self.generator,
+                                        actions=forced)[0]
 
     def value_to_learner(self, obs, stm, learner_color):
         """V(obs) from the learner's side: the model's value is the side to
@@ -323,7 +330,8 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
         pre_stm = env_states.stm.int()
         mismatch = mismatch + (learner_to_move != (pre_stm == learner_color)).sum()
 
-        env_states, eo = env_core.step(env_states, actions)
+        with tracing.span("engine.step", device=dev):
+            env_states, eo = env_core.step(env_states, actions)
         done = eo.terminated | eo.truncated
         # reward in learner perspective; the engine reports the last mover's
         r_l = torch.where(learner_to_move, eo.reward, -eo.reward)
@@ -342,51 +350,61 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
         # truncation bootstrap: -V(terminal obs) to the learner; one forward
         # serves finalize-time truncations and deferred learner-move ones
         trunc = eo.truncated & ~eo.terminated
-        if bool((trunc & (fin | learner_to_move)).any()):
-            tv_l = fw.value_to_learner(eo.terminal_obs, 1 - pre_stm, learner_color)
+        with tracing.span("truncation.check", sync=1):
+            cut = bool((trunc & (fin | learner_to_move)).any())
+        if cut:
+            with tracing.span("truncation.forward"):
+                tv_l = fw.value_to_learner(eo.terminal_obs, 1 - pre_stm, learner_color)
         else:
             tv_l = torch.zeros(n, device=dev)
-        slot_override = torch.where(pend.done, pend.override,
-                                    torch.where(trunc & fin, tv_l, nan))
+        with tracing.span("store"):
+            slot_override = torch.where(pend.done, pend.override,
+                                        torch.where(trunc & fin, tv_l, nan))
 
-        # 3. the compacted row of the finalize half
-        fin_f = fin[fs]
-        _write_row(traj, t2, fs, dict(
-            obs=torch.where(fin_f[:, None, None], pend.obs[fs], obs[fs]),
-            actions=torch.where(fin_f, pend.action[fs], 0),
-            log_probs=torch.where(fin_f, pend.log_prob[fs], 0.0),
-            values=torch.where(fin_f, pend.value[fs], 0.0),
-            rewards=torch.where(fin_f, reward[fs], 0.0),
-            dones=slot_done[fs], terminated=slot_term[fs],
-            legal_masks=torch.where(fin_f[:, None], pend.legal_mask[fs], masks[fs]),
-            value_cats=cats[fs],
-            score_targets=torch.where(fin_f, pend.score_target[fs], 0.0),
-            next_value_override=slot_override[fs], valid=fin_f))
+            # 3. the compacted row of the finalize half
+            fin_f = fin[fs]
+            _write_row(traj, t2, fs, dict(
+                obs=torch.where(fin_f[:, None, None], pend.obs[fs], obs[fs]),
+                actions=torch.where(fin_f, pend.action[fs], 0),
+                log_probs=torch.where(fin_f, pend.log_prob[fs], 0.0),
+                values=torch.where(fin_f, pend.value[fs], 0.0),
+                rewards=torch.where(fin_f, reward[fs], 0.0),
+                dones=slot_done[fs], terminated=slot_term[fs],
+                legal_masks=torch.where(fin_f[:, None], pend.legal_mask[fs], masks[fs]),
+                value_cats=cats[fs],
+                score_targets=torch.where(fin_f, pend.score_target[fs], 0.0),
+                next_value_override=slot_override[fs], valid=fin_f))
 
-        # 4. open new pendings for the learner half, even on done (deferred)
-        create = learner_to_move
-        score_now = eo.material.float() / SCORE_NORMALIZATION
-        pend = PendingState(
-            valid=create,
-            obs=torch.where(create[:, None, None], obs, pend.obs),
-            action=torch.where(create, a_l_full, pend.action),
-            log_prob=torch.where(create, logp_l_full, pend.log_prob),
-            value=torch.where(create, v_l_full, pend.value),
-            legal_mask=torch.where(create[:, None], masks, pend.legal_mask),
-            reward=torch.where(create, r_l, 0.0),
-            score_target=torch.where(create, score_now, pend.score_target),
-            done=create & done,
-            terminated=create & eo.terminated,
-            override=torch.where(create & trunc, tv_l, nan),
-        )
+            # 4. open new pendings for the learner half, even on done (deferred)
+            create = learner_to_move
+            score_now = eo.material.float() / SCORE_NORMALIZATION
+            pend = PendingState(
+                valid=create,
+                obs=torch.where(create[:, None, None], obs, pend.obs),
+                action=torch.where(create, a_l_full, pend.action),
+                log_prob=torch.where(create, logp_l_full, pend.log_prob),
+                value=torch.where(create, v_l_full, pend.value),
+                legal_mask=torch.where(create[:, None], masks, pend.legal_mask),
+                reward=torch.where(create, r_l, 0.0),
+                score_target=torch.where(create, score_now, pend.score_target),
+                done=create & done,
+                terminated=create & eo.terminated,
+                override=torch.where(create & trunc, tv_l, nan),
+            )
 
-        # 5. parity-locked color on episode end: the fresh game (stm = 0)
-        # has the learner move iff next ply's parity is the env's half
-        learner_color = torch.where(done, b_env ^ (1 - p), learner_color)
-        counts = counts + _stat_counts(eo, done, r_l, pre_stm, k_opp, block)
+            # 5. parity-locked color on episode end: the fresh game (stm = 0)
+            # has the learner move iff next ply's parity is the env's half
+            learner_color = torch.where(done, b_env ^ (1 - p), learner_color)
+            counts = counts + _stat_counts(eo, done, r_l, pre_stm, k_opp, block)
         return (env_states, eo.obs, eo.legal_mask, learner_color, pend, counts, mismatch)
 
+    def ply_step(fw: _Forwards, p: int, ply: int, t2: int, traj, carry):
+        with tracing.span("ply", index=ply):
+            tracing.count("plies")
+            return sub_step(fw, p, ply, t2, traj, carry)
+
     @torch.no_grad()
+    @tracing.traced("rollout")
     def rollout(opp_vars: dict, env_states, obs, masks, learner_color,
                 generator: torch.Generator | None, sampler: Sampler | None = None,
                 recolor: Recolor | None = None):
@@ -399,15 +417,17 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
                  torch.zeros(7 + 3 * k_opp, dtype=torch.int64, device=dev), zero)
         for t2 in range(T2):
             # row t2: columns [H, N) finalize at parity 0, [0, H) at parity 1
-            carry = sub_step(fw, 0, 2 * t2, t2, traj, carry)
-            carry = sub_step(fw, 1, 2 * t2 + 1, t2, traj, carry)
+            carry = ply_step(fw, 0, 2 * t2, t2, traj, carry)
+            carry = ply_step(fw, 1, 2 * t2 + 1, t2, traj, carry)
         env_states, obs, masks, learner_color, pend, counts, mismatch = carry
 
         # trailing row: the second half holds a pending opened at the final
         # ply; open ones are bootstrapped by V(obs_T) to the learner
-        next_value = fw.value_to_learner(obs, env_states.stm.int(), learner_color)
+        with tracing.span("forward.last"):
+            next_value = fw.value_to_learner(obs, env_states.stm.int(), learner_color)
         _write_row(traj, T2, slice(0, n), _tail_row(pend, deferred=True))
-        stats = _league_stats(counts, k_opp, int(mismatch))
+        with tracing.span("rollout.stats", sync=2):
+            stats = _league_stats(counts, k_opp, int(mismatch))
         return (env_states, obs, masks, learner_color), traj, next_value, stats
 
     return rollout
@@ -427,6 +447,7 @@ def _make_dynamic_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
     nan = torch.full((n,), float("nan"), device=dev)
 
     @torch.no_grad()
+    @tracing.traced("rollout")
     def rollout(opp_vars: dict, env_states, obs, masks, learner_color,
                 generator: torch.Generator | None, sampler: Sampler | None = None,
                 recolor: Recolor | None = None):
@@ -437,75 +458,85 @@ def _make_dynamic_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
         pend = init_pending(n, (C, 81), A, dev)
         counts = torch.zeros(7 + 3 * k_opp, dtype=torch.int64, device=dev)
         for t in range(num_steps):
-            pre_stm = env_states.stm.int()
-            learner_to_move = pre_stm == learner_color
+            with tracing.span("ply", index=t):
+                tracing.count("plies")
+                pre_stm = env_states.stm.int()
+                learner_to_move = pre_stm == learner_color
 
-            a_l, logp_l, v_l = fw.learner(t, obs, masks)
-            a_o = torch.zeros(n, dtype=torch.int64, device=dev)
-            for k, sl in opp_blocks:
-                a_o[sl] = fw.opponent(t, k, obs[sl], masks[sl])
-            actions = torch.where(learner_to_move, a_l, a_o)
+                a_l, logp_l, v_l = fw.learner(t, obs, masks)
+                a_o = torch.zeros(n, dtype=torch.int64, device=dev)
+                for k, sl in opp_blocks:
+                    a_o[sl] = fw.opponent(t, k, obs[sl], masks[sl])
+                actions = torch.where(learner_to_move, a_l, a_o)
 
-            env_states, eo = env_core.step(env_states, actions)
-            done = eo.terminated | eo.truncated
-            r_l = torch.where(learner_to_move, eo.reward, -eo.reward)
-            learner_next = eo.current_player.int() == learner_color
+                with tracing.span("engine.step", device=dev):
+                    env_states, eo = env_core.step(env_states, actions)
+                done = eo.terminated | eo.truncated
+                r_l = torch.where(learner_to_move, eo.reward, -eo.reward)
+                learner_next = eo.current_player.int() == learner_color
 
-            # 1. accumulate into prior pendings
-            reward = pend.reward + torch.where(pend.valid, r_l, 0.0)
-            # 2. finalize prior pendings (done or the turn returns to the
-            # learner); the learner's own move that ended the episode
-            # finalizes at once (no pending can be open when it moves)
-            fin_prior = pend.valid & (done | learner_next)
-            emit_imm = learner_to_move & done & ~pend.valid
-            valid_slot = fin_prior | emit_imm
+                # 1. accumulate into prior pendings
+                reward = pend.reward + torch.where(pend.valid, r_l, 0.0)
+                # 2. finalize prior pendings (done or the turn returns to the
+                # learner); the learner's own move that ended the episode
+                # finalizes at once (no pending can be open when it moves)
+                fin_prior = pend.valid & (done | learner_next)
+                emit_imm = learner_to_move & done & ~pend.valid
+                valid_slot = fin_prior | emit_imm
 
-            score_target = eo.material.float() / SCORE_NORMALIZATION
-            slot_reward = torch.where(fin_prior, reward, r_l)
-            slot_term = valid_slot & eo.terminated
-            trunc = eo.truncated & ~eo.terminated
-            if bool((trunc & valid_slot).any()):
-                tv_l = fw.value_to_learner(eo.terminal_obs, 1 - pre_stm, learner_color)
-                override = torch.where(trunc & valid_slot, tv_l, nan)
-            else:
-                override = nan
-            _write_row(traj, t, slice(0, n), dict(
-                obs=torch.where(fin_prior[:, None, None], pend.obs, obs),
-                actions=torch.where(fin_prior, pend.action, a_l),
-                log_probs=torch.where(fin_prior, pend.log_prob, logp_l),
-                values=torch.where(fin_prior, pend.value, v_l),
-                rewards=torch.where(valid_slot, slot_reward, 0.0),
-                dones=valid_slot & done, terminated=slot_term,
-                legal_masks=torch.where(fin_prior[:, None], pend.legal_mask, masks),
-                value_cats=torch.where(valid_slot,
-                                       compute_value_cats(slot_reward, slot_term), -1),
-                score_targets=torch.where(
-                    valid_slot, torch.where(fin_prior, pend.score_target, score_target), 0.0),
-                next_value_override=override, valid=valid_slot))
+                score_target = eo.material.float() / SCORE_NORMALIZATION
+                slot_reward = torch.where(fin_prior, reward, r_l)
+                slot_term = valid_slot & eo.terminated
+                trunc = eo.truncated & ~eo.terminated
+                with tracing.span("truncation.check", sync=1):
+                    cut = bool((trunc & valid_slot).any())
+                if cut:
+                    with tracing.span("truncation.forward"):
+                        tv_l = fw.value_to_learner(eo.terminal_obs, 1 - pre_stm, learner_color)
+                    override = torch.where(trunc & valid_slot, tv_l, nan)
+                else:
+                    override = nan
+                with tracing.span("store"):
+                    _write_row(traj, t, slice(0, n), dict(
+                        obs=torch.where(fin_prior[:, None, None], pend.obs, obs),
+                        actions=torch.where(fin_prior, pend.action, a_l),
+                        log_probs=torch.where(fin_prior, pend.log_prob, logp_l),
+                        values=torch.where(fin_prior, pend.value, v_l),
+                        rewards=torch.where(valid_slot, slot_reward, 0.0),
+                        dones=valid_slot & done, terminated=slot_term,
+                        legal_masks=torch.where(fin_prior[:, None], pend.legal_mask, masks),
+                        value_cats=torch.where(valid_slot,
+                                               compute_value_cats(slot_reward, slot_term), -1),
+                        score_targets=torch.where(
+                            valid_slot,
+                            torch.where(fin_prior, pend.score_target, score_target), 0.0),
+                        next_value_override=override, valid=valid_slot))
 
-            # 3. open new pendings where the learner moved mid-game
-            create = learner_to_move & ~done
-            pend = replace(
-                pend,
-                valid=(pend.valid & ~fin_prior) | create,
-                obs=torch.where(create[:, None, None], obs, pend.obs),
-                action=torch.where(create, a_l, pend.action),
-                log_prob=torch.where(create, logp_l, pend.log_prob),
-                value=torch.where(create, v_l, pend.value),
-                legal_mask=torch.where(create[:, None], masks, pend.legal_mask),
-                reward=torch.where(create, r_l, torch.where(fin_prior, 0.0, reward)),
-                score_target=torch.where(create, score_target, pend.score_target),
-            )
-            if color_randomization:  # re-roll the learner's color on episode end
-                new_color = (recolor(t) if recolor is not None else
-                             torch.rand(n, generator=generator, device=dev) < 0.5)
-                learner_color = torch.where(done, new_color.to(dev).int(), learner_color)
-            counts += _stat_counts(eo, done, r_l, pre_stm, k_opp, block)
-            obs, masks = eo.obs, eo.legal_mask
+                    # 3. open new pendings where the learner moved mid-game
+                    create = learner_to_move & ~done
+                    pend = replace(
+                        pend,
+                        valid=(pend.valid & ~fin_prior) | create,
+                        obs=torch.where(create[:, None, None], obs, pend.obs),
+                        action=torch.where(create, a_l, pend.action),
+                        log_prob=torch.where(create, logp_l, pend.log_prob),
+                        value=torch.where(create, v_l, pend.value),
+                        legal_mask=torch.where(create[:, None], masks, pend.legal_mask),
+                        reward=torch.where(create, r_l, torch.where(fin_prior, 0.0, reward)),
+                        score_target=torch.where(create, score_target, pend.score_target),
+                    )
+                    if color_randomization:  # re-roll the learner's color on episode end
+                        new_color = (recolor(t) if recolor is not None else
+                                     torch.rand(n, generator=generator, device=dev) < 0.5)
+                        learner_color = torch.where(done, new_color.to(dev).int(), learner_color)
+                    counts += _stat_counts(eo, done, r_l, pre_stm, k_opp, block)
+                obs, masks = eo.obs, eo.legal_mask
 
-        next_value = fw.value_to_learner(obs, env_states.stm.int(), learner_color)
+        with tracing.span("forward.last"):
+            next_value = fw.value_to_learner(obs, env_states.stm.int(), learner_color)
         _write_row(traj, num_steps, slice(0, n), _tail_row(pend, deferred=False))
-        stats = _league_stats(counts, k_opp, 0)
+        with tracing.span("rollout.stats", sync=1):
+            stats = _league_stats(counts, k_opp, 0)
         return (env_states, obs, masks, learner_color), traj, next_value, stats
 
     return rollout

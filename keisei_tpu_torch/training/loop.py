@@ -56,6 +56,7 @@ from ..parallel.distributed import (broadcast_from_main, free_port, get_distribu
                                     teardown_distributed, torchrun_layout)
 from ..parallel.mesh import Mesh, make_mesh, replicate, shard_env_batch
 from ..parallel.placement import learner_device
+from ..utils import tracing
 from ..utils.device import parse_device, resolve_device
 from .checkpoint import (META_NAME, checkpoint_payload, load_checkpoint, load_meta,
                          prune_checkpoints, write_checkpoint)
@@ -560,11 +561,22 @@ class SelfPlayTrainer:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with tracing.span("rollout.sync", sync=1):
+                torch.cuda.synchronize(self.device)
 
     def run_epoch(self) -> EpochMetrics:
+        """One epoch in four phases, each a span of the epoch's
+        (utils/tracing.py): `phase.rollout`, `phase.update`, `phase.upkeep`
+        (LR schedule, league, checkpoint) and `phase.observe` (the observer's
+        writes and the board snapshot). EpochMetrics' three times are the
+        first three phases' durations, from their shared stamps."""
+        with tracing.span("epoch", epoch=self.epoch + 1):
+            return self._run_epoch()
+
+    def _run_epoch(self) -> EpochMetrics:
         tc = self.config.training
-        t0 = time.monotonic()
+        phase = tracing.Phases()
+        t0 = phase.next("phase.rollout")
         self.observer.heartbeat(self.epoch, self.epoch * self.T, "rollout")
         league_stats = None
         if self.league_enabled:
@@ -587,7 +599,7 @@ class SelfPlayTrainer:
             stats = stats.summed(self.mesh)
         self.env_carry = tuple(carry)
         self._sync()
-        t1 = time.monotonic()
+        t1 = phase.next("phase.update")
 
         self.observer.heartbeat(self.epoch, self.epoch * self.T, "update")
         entropy_coeff = entropy_coeff_schedule(
@@ -595,7 +607,7 @@ class SelfPlayTrainer:
             tc.entropy_warmup_coeff)
         metrics = self._update(traj, next_value, self.generator, entropy_coeff)
         del traj
-        t2 = time.monotonic()
+        t2 = phase.next("phase.upkeep")
 
         lr = get_learning_rate(self.optimizer)
         new_lr = self.lr_sched.step(metrics["policy_loss"], lr)
@@ -611,19 +623,21 @@ class SelfPlayTrainer:
         ckpt = None
         if self.epoch % tc.checkpoint_interval == 0:
             ckpt = self.save(blocking=not tc.async_checkpoint)
-        t3 = time.monotonic()
+        t3 = phase.next("phase.observe")
         em = EpochMetrics(
             epoch=self.epoch, learning_rate=new_lr,
             episodes=stats.episodes, wins_black=stats.wins_black,
             wins_white=stats.wins_white, draws=stats.draws, truncated=stats.truncated,
             mean_episode_length=stats.total_ply / stats.episodes if stats.episodes else 0.0,
-            rollout_time=t1 - t0, update_time=t2 - t1, maint_time=t3 - t2, **metrics)
+            rollout_time=(t1 - t0) / 1e9, update_time=(t2 - t1) / 1e9,
+            maint_time=(t3 - t2) / 1e9, **metrics)
         self.metrics_sink(em.as_dict())
         self.observer.on_epoch(em.as_dict(), self.epoch * self.T, ckpt)
         # rank 0's first envs are the global first; across hosts the JAX
         # package skips the snapshot, and so does the port
         if self.observer.enabled and self.mesh.single_host:
             self._snapshot()
+        phase.next()
         return em
 
     def _league_epoch_end(self, league_stats) -> None:
@@ -686,13 +700,15 @@ class SelfPlayTrainer:
         otherwise), from captured values only. The store is an RLock plus
         a connection per call; the gauntlet plays on the store's device
         through its own modules and generators."""
-        last = time.monotonic()
+        last = time.monotonic_ns()
         lc = self.config.league
 
         def mark(phase: str) -> None:
+            """The phase that ends now: its seconds, and a span of the thread's."""
             nonlocal last
-            now = time.monotonic()
-            self._maint_phase_s[phase] = self._maint_phase_s.get(phase, 0.0) + now - last
+            now = time.monotonic_ns()
+            self._maint_phase_s[phase] = self._maint_phase_s.get(phase, 0.0) + (now - last) / 1e9
+            tracing.open_span(f"maintenance.{phase}", last, epoch=epoch).close(now)
             last = now
 
         role_k = {Role.FRONTIER_STATIC: lc.elo.frontier_k, Role.DYNAMIC: lc.elo.dynamic_k,
@@ -758,10 +774,11 @@ class SelfPlayTrainer:
             self.model.eval()
             with torch.no_grad():
                 out = self.model(obs[:k].reshape(k, self.num_channels, 9, 9))
-            values = self.adapter.scalar_value_blended(out).cpu().numpy()
-            host = SimpleNamespace(**{
-                f: getattr(env_states, f)[:k].cpu().numpy()
-                for f in ("board", "hands", "stm", "ply", "in_check")})
+            fields = ("board", "hands", "stm", "ply", "in_check")
+            with tracing.span("snapshot.read", sync=1 + len(fields)):
+                values = self.adapter.scalar_value_blended(out).cpu().numpy()
+                host = SimpleNamespace(**{f: getattr(env_states, f)[:k].cpu().numpy()
+                                          for f in fields})
             self.observer.snapshot_envs(host, values=values)
         except Exception:
             logger.exception("board snapshot failed — continuing")

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..models.se_resnet import synced_batch_stats
 from ..parallel.mesh import GradientBucket, Mesh, all_reduce_sum
+from ..utils import tracing
 from .gae import compute_gae, compute_gae_masked
 from .value_adapter import MinibatchCounts, MultiHeadValueAdapter
 
@@ -307,7 +308,8 @@ class PPOUpdate:
                  generator: torch.Generator | None, entropy_coeff: float,
                  perms: list[torch.Tensor] | None = None) -> dict[str, float]:
         cfg = self.cfg
-        data = self.prepare(traj, next_value)
+        with tracing.span("update.prepare"):
+            data = self.prepare(traj, next_value)
         S = data["advantages"].shape[0]
         n_mb = S // cfg.batch_size
         dev = data["advantages"].device
@@ -320,12 +322,17 @@ class PPOUpdate:
                 perm = torch.randperm(S, generator=generator, device=dev)
             idx = perm[: n_mb * cfg.batch_size].reshape(n_mb, cfg.batch_size)
             for ix in idx:
-                self.optimizer.zero_grad(set_to_none=True)
-                losses = self.backward(data, ix, entropy_coeff)
-                grad_norm = clip_by_global_norm_(self.params, cfg.grad_clip)
-                self.optimizer.step()
-                rows.append(torch.cat([losses, grad_norm.detach()[None]]))
-        means = torch.stack(rows).mean(dim=0).tolist()
+                with tracing.span("minibatch", index=len(rows)):
+                    self.optimizer.zero_grad(set_to_none=True)
+                    with tracing.span("backward"):
+                        losses = self.backward(data, ix, entropy_coeff)
+                    with tracing.span("clip"):
+                        grad_norm = clip_by_global_norm_(self.params, cfg.grad_clip)
+                    with tracing.span("optimizer"):
+                        self.optimizer.step()
+                    rows.append(torch.cat([losses, grad_norm.detach()[None]]))
+        with tracing.span("update.means", sync=1):
+            means = torch.stack(rows).mean(dim=0).tolist()
         return dict(zip(("policy_loss", "value_loss", "score_loss", "entropy",
                          "gradient_norm"), means))
 

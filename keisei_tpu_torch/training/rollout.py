@@ -24,6 +24,7 @@ from typing import Callable
 import torch
 
 from ..env.vec_env import EnvCore
+from ..utils import tracing
 from .gae import alternating_perspective_overrides
 from .ppo import SCORE_NORMALIZATION, Trajectory, compute_value_cats, masked_policy_sample
 
@@ -59,7 +60,8 @@ class RolloutStats:
         if mesh.group is None:
             return self
         t = torch.tensor(dataclasses.astuple(self), dtype=torch.int64, device=mesh.device)
-        return RolloutStats(*mesh.all_reduce_(t).tolist())
+        with tracing.span("rollout.summed", sync=1):
+            return RolloutStats(*mesh.all_reduce_(t).tolist())
 
 
 # sampler(step, legal_masks) -> actions: replaces sampling (tests force actions)
@@ -75,6 +77,7 @@ def make_selfplay_rollout(env_core: EnvCore, model: torch.nn.Module, adapter, nu
     dev = env_core.device
 
     @torch.no_grad()
+    @tracing.traced("rollout")
     def rollout(env_states, obs, masks, generator: torch.Generator | None,
                 sampler: Sampler | None = None):
         weights = fwd.prepare(model)
@@ -93,45 +96,59 @@ def make_selfplay_rollout(env_core: EnvCore, model: torch.nn.Module, adapter, nu
         )
         counts = torch.zeros(7, dtype=torch.int64, device=dev)
         for t in range(T):
-            out = fwd(weights, obs.reshape(N, C, 9, 9))
-            forced = sampler(t, masks) if sampler is not None else None
-            actions, log_probs, values = masked_policy_sample(out, masks, adapter, generator,
-                                                              actions=forced)
-            last_mover = env_states.stm.long()
-            env_states, eo = env_core.step(env_states, actions)
-            dones = eo.terminated | eo.truncated
+            with tracing.span("ply", index=t):
+                tracing.count("plies")
+                with tracing.span("forward", device=dev):
+                    out = fwd(weights, obs.reshape(N, C, 9, 9))
+                with tracing.span("sample"):
+                    forced = sampler(t, masks) if sampler is not None else None
+                    actions, log_probs, values = masked_policy_sample(
+                        out, masks, adapter, generator, actions=forced)
+                last_mover = env_states.stm.long()
+                with tracing.span("engine.step", device=dev):
+                    env_states, eo = env_core.step(env_states, actions)
+                dones = eo.terminated | eo.truncated
 
-            trunc_only = eo.truncated & ~eo.terminated
-            if bool(trunc_only.any()):
-                tout = fwd(weights, eo.terminal_obs.reshape(N, C, 9, 9))
-                tv = adapter.scalar_value_blended(tout)
-                traj.next_value_override[t] = torch.where(trunc_only, -tv, float("nan"))
+                trunc_only = eo.truncated & ~eo.terminated
+                with tracing.span("truncation.check", sync=1):
+                    cut = bool(trunc_only.any())
+                if cut:
+                    with tracing.span("truncation.forward"):
+                        tout = fwd(weights, eo.terminal_obs.reshape(N, C, 9, 9))
+                        tv = adapter.scalar_value_blended(tout)
+                        traj.next_value_override[t] = torch.where(trunc_only, -tv, float("nan"))
 
-            traj.obs[t] = obs
-            traj.actions[t] = actions
-            traj.log_probs[t] = log_probs
-            traj.values[t] = values
-            traj.rewards[t] = eo.reward
-            traj.dones[t] = dones
-            traj.terminated[t] = eo.terminated
-            traj.legal_masks[t] = masks
-            traj.value_cats[t] = compute_value_cats(eo.reward, eo.terminated)
-            traj.score_targets[t] = eo.material.float() / SCORE_NORMALIZATION
+                with tracing.span("store"):
+                    traj.obs[t] = obs
+                    traj.actions[t] = actions
+                    traj.log_probs[t] = log_probs
+                    traj.values[t] = values
+                    traj.rewards[t] = eo.reward
+                    traj.dones[t] = dones
+                    traj.terminated[t] = eo.terminated
+                    traj.legal_masks[t] = masks
+                    traj.value_cats[t] = compute_value_cats(eo.reward, eo.terminated)
+                    traj.score_targets[t] = eo.material.float() / SCORE_NORMALIZATION
 
-            win_b = ((eo.reward > 0) & (last_mover == 0)) | ((eo.reward < 0) & (last_mover == 1))
-            win_w = ((eo.reward > 0) & (last_mover == 1)) | ((eo.reward < 0) & (last_mover == 0))
-            counts += torch.stack([
-                dones.sum(), (win_b & eo.terminated).sum(), (win_w & eo.terminated).sum(),
-                (eo.terminated & (eo.reward == 0)).sum(), eo.terminated.sum(),
-                trunc_only.sum(), torch.where(dones, eo.ply_count, 0).sum(),
-            ])
-            obs, masks = eo.obs, eo.legal_mask
+                    win_b = (((eo.reward > 0) & (last_mover == 0))
+                             | ((eo.reward < 0) & (last_mover == 1)))
+                    win_w = (((eo.reward > 0) & (last_mover == 1))
+                             | ((eo.reward < 0) & (last_mover == 0)))
+                    counts += torch.stack([
+                        dones.sum(), (win_b & eo.terminated).sum(),
+                        (win_w & eo.terminated).sum(), (eo.terminated & (eo.reward == 0)).sum(),
+                        eo.terminated.sum(), trunc_only.sum(),
+                        torch.where(dones, eo.ply_count, 0).sum(),
+                    ])
+                obs, masks = eo.obs, eo.legal_mask
 
         traj.next_value_override = alternating_perspective_overrides(
             traj.values, traj.terminated, traj.next_value_override)
-        out = fwd(weights, obs.reshape(N, C, 9, 9))
-        next_value = -adapter.scalar_value_blended(out)
-        stats = RolloutStats(*[int(v) for v in counts.tolist()])
+        with tracing.span("forward.last"):
+            out = fwd(weights, obs.reshape(N, C, 9, 9))
+            next_value = -adapter.scalar_value_blended(out)
+        with tracing.span("rollout.stats", sync=1):
+            stats = RolloutStats(*[int(v) for v in counts.tolist()])
         return (env_states, obs, masks), traj, next_value, stats
 
     return rollout

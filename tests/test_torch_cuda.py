@@ -612,3 +612,59 @@ def test_update_under_a_world_size_one_nccl_group_is_bit_equal(dev):
     for other in (again, got):
         assert other[0] == want[0]
         assert all(torch.equal(a, b) for a, b in zip(other[1], want[1]))
+
+
+def test_program_spans_and_cupti_kernels_share_one_clock(dev):
+    """A kernel launched inside a span of the program's tracer starts, and
+    with a synchronize inside the span ends, within the span's [start, end]:
+    the spans (time.time_ns()'s nanoseconds) and a torch.profiler trace's
+    CUPTI kernel times are on one clock (utils/tracing.py,
+    bench_torch/trace.py)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from keisei_tpu_torch.utils import tracing
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tracing.enable(events={"sleep"})
+        try:
+            with tracing.span("sleep", device=dev):
+                torch.cuda._sleep(40_000_000)  # ~20 ms at the H100's clocks
+                torch.cuda.synchronize()
+        finally:
+            tracing.disable()
+    kernels = [(e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+    (span,) = tracing.spans()
+    start, end = max(kernels, key=lambda k: k[1] - k[0])
+    assert end - start > 5_000_000
+    assert span["start_ns"] <= start < end <= span["end_ns"], (span, start, end)
+    assert span["device_ms"] == pytest.approx((end - start) / 1e6, rel=0.2)
+
+
+def test_program_spans_time_on_the_card_only_the_spans_a_metric_reads(dev):
+    """Under torch.profiler the tracer records CUDA events for `engine.step`
+    (read by engine_ms_per_ply.train) and not for `forward`, which no
+    metric reads; `enable(events=...)` names the spans to time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from keisei_tpu_torch.utils import tracing
+
+    x = torch.randn(256, 256, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for name in ("forward", "engine.step"):
+            with tracing.span(name, device=dev):
+                x = x @ x
+    got = {s["name"]: s.get("device_ms") for s in tracing.spans()}
+    assert got["forward"] is None and got["engine.step"] > 0
+    tracing.enable(events={"forward", "engine.step"})
+    try:
+        for name in ("forward", "engine.step"):
+            with tracing.span(name, device=dev):
+                x = x @ x
+    finally:
+        tracing.disable()
+    assert all(s["device_ms"] > 0 for s in tracing.spans())
