@@ -8,9 +8,10 @@ to the device once (`EngineTables`).
 
 The JAX module reformulates every per-square lookup as a one-hot matmul for
 the TPU's matrix unit. Here lookups are plain gathers, and the slider
-floods are ray walks (gather along each ray, cumulative blocking, one
-scatter-by-matmul back to squares): a handful of kernels instead of 64
-shifts per flood. Outputs are identical, bit for bit.
+floods are ray walks (gather along each ray, the blocked-before prefix by
+matmul with a triangular table, one scatter-by-matmul back to squares): a
+handful of kernels instead of 64 shifts per flood. Outputs are identical,
+bit for bit.
 
 The Zobrist hash is one int64 per position (the JAX engine's two uint32
 lanes, low lane in the low bits): CUDA has XOR and comparison for int64
@@ -72,6 +73,7 @@ class EngineTables:
         self.from_ray_valid = t(_FROM_RAY >= 0)                         # (81,8,8)
         self.from_ray_c = t(np.maximum(_FROM_RAY, 0))                   # (81,8,8)
         self.ray_dest = t(_ray_dest_onehot())                           # (5184,81)
+        self.before_ray = t(np.triu(np.ones((8, 8), np.float32), k=1))  # [j,k] = j < k
         self.step_att = t(T.STEP_ATT)                                   # (16,2,81,81)
         self.slide_ok = t(T.SLIDE_OK)                                   # (16,2,8)
         guard = np.zeros((16, 2, 1), bool)
@@ -186,15 +188,21 @@ def perspective_board(board: torch.Tensor, stm: torch.Tensor) -> torch.Tensor:
     return torch.where((stm == 0)[:, None], board, swapped)
 
 
+def _clear_before(blocked: torch.Tensor, tb: EngineTables) -> torch.Tensor:
+    """(..., 8) bool "square k of the ray is blocked" -> (..., 8) bool "no
+    square before k is". The count of blocked squares before k is a matmul
+    with the triangular table; it is at most 7, so exact in any float type.
+    (torch.cumsum gives each 8-square row a 512-thread block on the card.)"""
+    return (blocked.float() @ tb.before_ray) < 0.5
+
+
 def _ray_attacks(sliders: torch.Tensor, empty: torch.Tensor, tb: EngineTables) -> torch.Tensor:
     """Squares attacked along rays. sliders (N, 8, 81) per-direction
     presence, empty (N, 81) -> (N, 81) bool. Same set as the JAX flood: a
     ray square is reached when every square before it on the ray is empty."""
     n = empty.shape[0]
     e_at = empty[:, tb.from_ray_c] & tb.from_ray_valid                 # (N,81,8,8)
-    blocked = torch.cumsum((~e_at).to(torch.int32), dim=-1)
-    clear = torch.ones_like(e_at)
-    clear[..., 1:] = blocked[..., :-1] == 0
+    clear = _clear_before(~e_at, tb)
     reach = sliders.transpose(1, 2)[..., None] & tb.from_ray_valid & clear
     return (reach.reshape(n, 81 * 64).float() @ tb.ray_dest) > 0.5
 
@@ -285,9 +293,7 @@ def legal_mask_pspace(pboard: torch.Tensor, own_hand: torch.Tensor, tb: EngineTa
     dks1 = d_ks + 1
     dks_at = torch.where(valid, dks1[:, fr], torch.zeros_like(dks1[:, fr]))
 
-    blocked_before = torch.cumsum((~empty_at).to(torch.int32), dim=-1)
-    path_clear = torch.ones_like(empty_at)
-    path_clear[..., 1:] = blocked_before[..., :-1] == 0
+    path_clear = _clear_before(~empty_at, tb)
     move_cap = tb.move_ok[kind] & own[:, :, None, None]
     base = move_cap & valid & path_clear & ~own_at
 

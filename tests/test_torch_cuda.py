@@ -46,8 +46,13 @@ through a tile quantization) at most 1 level apart and >= 99% identical,
 bf16gemm at the bf16 bound; the
 dot chain exact in int8 and at the bf16 bound in bf16; tiled_mm exact in
 int8 and within 1e-4 of max |ref| in bf16 (f32 output).
+
+The rules engine on the card gives the CPU engine's legal masks over 200
+random plies at N=1024, with TF32 matmuls on and under bf16 autocast: its
+table matmuls (the ray prefix among them) sum small integers, exact in both.
 """
 
+import contextlib
 from collections import Counter
 
 import pytest
@@ -668,3 +673,38 @@ def test_program_spans_time_on_the_card_only_the_spans_a_metric_reads(dev):
     finally:
         tracing.disable()
     assert all(s["device_ms"] > 0 for s in tracing.spans())
+
+
+def test_engine_masks_on_the_card_equal_the_cpu_engine(dev):
+    """200 random plies at N=1024 (max_ply 128: truncations and resets
+    included): the same actions on the CPU engine and on two card engines,
+    one with TF32 matmuls and one under bf16 autocast; every ply's legal
+    mask and board equal the CPU's."""
+    from keisei_tpu_torch.env.vec_env import EnvCore
+
+    n, plies = 1024, 200
+    modes = {"tf32": contextlib.nullcontext,
+             "bf16": lambda: torch.autocast("cuda", dtype=torch.bfloat16)}
+    g = torch.Generator().manual_seed(0)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        cpu = EnvCore(n, 128, 50, device="cpu")
+        state, _, mask = cpu.init()
+        envs, states = {}, {}
+        for name, mode in modes.items():
+            with mode():
+                envs[name] = EnvCore(n, 128, 50, device=dev)
+                states[name] = envs[name].init()[0]
+            assert torch.equal(envs[name].reset_mask.cpu(), cpu.reset_mask)
+        for t in range(plies):
+            actions = torch.multinomial(mask.float(), 1, generator=g)[:, 0]
+            state, out = cpu.step(state, actions)
+            mask = out.legal_mask
+            for name, mode in modes.items():
+                with mode():
+                    states[name], card_out = envs[name].step(states[name], actions.to(dev))
+                assert torch.equal(card_out.legal_mask.cpu(), mask), (name, t)
+                assert torch.equal(states[name].board.cpu(), state.board), (name, t)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

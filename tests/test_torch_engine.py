@@ -4,6 +4,8 @@ Random legal playouts go through JAX `EnvCore.step_fn()` and the port's
 `EnvCore.step` with the same actions (drawn by numpy among the legal
 ones); every output and the hash history must be equal bit for bit.
 Perft counts and scripted termination fixtures pin the rules directly.
+The ray prefix (`_clear_before`, a matmul with a triangular table) is held
+to the integer cumulative sum it replaced, and the engine's step to no scan.
 """
 
 import jax
@@ -11,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from keisei_tpu.engine import core as JC
 from keisei_tpu.engine import types as TY
@@ -160,3 +163,70 @@ def test_impasse_and_material_match_jax(tb):
                                      torch.tensor([p]), tb)
             assert int(bal[0]) == int(JC.material_balance(
                 jnp.asarray(board), jnp.asarray(hands), jnp.int32(p)))
+
+
+def _clear_before_cumsum(blocked, tb):
+    """The ray prefix as an integer cumulative sum: the formulation that
+    `C._clear_before` replaced, kept as its reference."""
+    counts = torch.cumsum(blocked.to(torch.int32), dim=-1)
+    clear = torch.ones_like(blocked)
+    clear[..., 1:] = counts[..., :-1] == 0
+    return clear
+
+
+def _random_positions(n, seed):
+    """n perspective boards holding both kings and other pieces on a random
+    share (5-95%) of the squares, with random mover hands."""
+    g = torch.Generator().manual_seed(seed)
+    kinds = torch.tensor([k for k in range(TY.NUM_KINDS) if k not in (TY.KING, 12, 15)])
+    piece = (kinds[torch.randint(len(kinds), (n, 81), generator=g)]
+             + 16 * torch.randint(2, (n, 81), generator=g))
+    density = 0.05 + 0.9 * torch.rand(n, 1, generator=g)
+    board = torch.where(torch.rand(n, 81, generator=g) < density, piece, TY.EMPTY)
+    kings = torch.rand(n, 81, generator=g).argsort(dim=1)
+    ar = torch.arange(n)
+    board[ar, kings[:, 0]] = TY.KING
+    board[ar, kings[:, 1]] = TY.KING + 16
+    hand = torch.randint(3, (n, TY.NUM_HAND), generator=g)
+    return board.to(torch.int8), hand.to(torch.int8)
+
+
+@pytest.mark.parametrize("n", [1, 7, 300])
+def test_ray_prefix_matches_cumsum(tb, monkeypatch, n):
+    """The matmul prefix equals the cumulative sum bit for bit on random
+    occupancies, and so does the legal mask built on either."""
+    board, hand = _random_positions(n, seed=n)
+    blocked = ~((board < 0)[:, tb.from_ray_c] & tb.from_ray_valid)       # (N,81,8,8)
+    assert torch.equal(C._clear_before(blocked, tb), _clear_before_cumsum(blocked, tb))
+    got = C.legal_mask_pspace(board, hand, tb)
+    monkeypatch.setattr(C, "_clear_before", _clear_before_cumsum)
+    want = C.legal_mask_pspace(board, hand, tb)
+    assert got[0].any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+class _OpLog(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.add(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def test_engine_step_runs_no_scan():
+    """`initial_outputs` (at EnvCore's construction) and `env_step` dispatch
+    no scan: PyTorch's innermost-dimension scan gives each short row a
+    512-thread block on the card."""
+    rng = np.random.default_rng(0)
+    with _OpLog() as log:
+        env = EnvCore(4, 8, 46, device="cpu")
+        state, _, mask = env.init()
+        for _ in range(10):
+            actions = [rng.choice(np.flatnonzero(m)) for m in mask.numpy()]
+            state, out = env.step(state, torch.tensor(actions))
+            mask = out.legal_mask
+    assert "mm" in log.ops or "bmm" in log.ops
+    assert not log.ops & {"cumsum", "cumprod", "cummax", "cummin", "logcumsumexp"}
