@@ -1,57 +1,28 @@
-"""The plain float32 reference of the SE-ResNet self-play learner: the eval
-and train forward, the rollout's bookkeeping (log-probs, values, the
-truncation and ply-alternation bootstraps), GAE, the KataGo-PPO loss, the
-global-norm clip and Adam, written from the model's equations.
+"""The plain float32 reference of the self-play learner around the model:
+the rollout's bookkeeping (log-probs, values, the truncation and
+ply-alternation bootstraps), GAE, the KataGo-PPO loss, the global-norm clip
+and Adam, written from the algorithm's equations. The model itself is an
+architecture's module, arch/<architecture>.py (arch/__init__.py gives the
+contract); the SE-ResNet's names are still reachable here.
 
 It imports nothing of the program and no kernel. Matmuls and convolutions
-run in float32 with TF32 off (`full_precision()`); `quant=fp8_e4m3` puts the
-inputs and weights of every convolution and bf16 Dense layer through
-float8 (e4m3, one scale per tensor): the control, one precision below the
-program's bfloat16.
-
-Weights: `init_state(widths, seed, device)` draws every weight from the seed
-in one call of a device generator (PyTorch's default bounds, U(-1/sqrt(fan_in),
-1/sqrt(fan_in))), with BatchNorm scale 1, shift 0 and statistics (0, 1). The
-benchmark loads this state into the program, and the reference draws it
-again; the keys are the program's state-dict names.
-
-Model (per block): conv-BN-ReLU plus a bias from FC(mean || max || std of the
-block input), conv-BN, SE scale and shift, residual, ReLU. Heads: policy
-1x1 conv-BN-ReLU, 1x1 conv with bias -> (B, 9, 9, 139); the trunk's global
-pool -> W/D/L logits and the score lead. BatchNorm in train mode takes the
-batch's mean and biased variance (E[x^2] - E[x]^2, clipped at 0), eps 1e-5;
-the pool's std is the population std with 1e-10 inside the sqrt.
+run in float32 with TF32 off (`full_precision()`); `quant=fp8_e4m3` puts
+what the configuration runs in bf16 through float8 (e4m3, one scale per
+tensor): the control, one precision below the program's bfloat16.
 """
 
 from __future__ import annotations
 
 import contextlib
-import math
 from dataclasses import dataclass
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 SPATIAL_MOVE_TYPES = 139
-BN_EPS = 1e-5
 ILLEGAL_LOGIT = -1e9
 FP8_MAX = 448.0
-
-
-@dataclass(frozen=True)
-class Widths:
-    num_blocks: int
-    channels: int
-    se_reduction: int
-    global_pool_channels: int
-    policy_channels: int
-    value_fc_size: int
-    score_fc_size: int
-    obs_channels: int
-
-    @classmethod
-    def from_params(cls, params: dict) -> "Widths":
-        return cls(**{k: int(params[k]) for k in cls.__dataclass_fields__})
 
 
 @contextlib.contextmanager
@@ -66,159 +37,12 @@ def full_precision():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
-# -- weights ---------------------------------------------------------------------------
-
-def weight_shapes(w: Widths) -> dict[str, tuple[tuple[int, ...], int]]:
-    """name -> (shape, fan_in) of every randomly drawn tensor, in draw order."""
-    C, gpc, sec = w.channels, w.global_pool_channels, w.channels // w.se_reduction
-    out: dict[str, tuple[tuple[int, ...], int]] = {}
-
-    def conv(name, cout, cin, k):
-        out[f"{name}.weight"] = ((cout, cin, k, k), cin * k * k)
-
-    def dense(name, fout, fin):
-        out[f"{name}.weight"] = ((fout, fin), fin)
-        out[f"{name}.bias"] = ((fout,), fin)
-
-    conv("input_conv", C, w.obs_channels, 3)
-    for i in range(w.num_blocks):
-        p = f"block{i}"
-        conv(f"{p}.conv1", C, C, 3)
-        dense(f"{p}.gp_fc1", gpc, 3 * C)
-        dense(f"{p}.gp_fc2", C, gpc)
-        conv(f"{p}.conv2", C, C, 3)
-        dense(f"{p}.se_fc1", sec, C)
-        dense(f"{p}.se_fc2", 2 * C, sec)
-    conv("policy_conv1", w.policy_channels, C, 1)
-    conv("policy_conv2", SPATIAL_MOVE_TYPES, w.policy_channels, 1)
-    out["policy_conv2.bias"] = ((SPATIAL_MOVE_TYPES,), w.policy_channels)
-    dense("value_fc1", w.value_fc_size, 3 * C)
-    dense("value_fc2", 3, w.value_fc_size)
-    dense("score_fc1", w.score_fc_size, 3 * C)
-    dense("score_fc2", 1, w.score_fc_size)
-    return out
-
-
-def batchnorm_names(w: Widths) -> dict[str, int]:
-    """BatchNorm layer -> channels."""
-    bns = {"input_bn": w.channels}
-    for i in range(w.num_blocks):
-        bns[f"block{i}.bn1"] = w.channels
-        bns[f"block{i}.bn2"] = w.channels
-    bns["policy_bn1"] = w.policy_channels
-    return bns
-
-
-def init_state(w: Widths, seed: int, device) -> dict[str, torch.Tensor]:
-    """The full state (parameters and BatchNorm statistics) from `seed`:
-    one uniform draw on `device` for every random tensor."""
-    shapes = weight_shapes(w)
-    g = torch.Generator(device=device)
-    g.manual_seed(int(seed))
-    total = sum(math.prod(s) for s, _ in shapes.values())
-    u = torch.rand(total, generator=g, device=device).mul_(2.0).sub_(1.0)
-    state, at = {}, 0
-    for name, (shape, fan_in) in shapes.items():
-        n = math.prod(shape)
-        state[name] = (u[at:at + n] / math.sqrt(fan_in)).reshape(shape)
-        at += n
-    for name, c in batchnorm_names(w).items():
-        state[f"{name}.weight"] = torch.ones(c, device=device)
-        state[f"{name}.bias"] = torch.zeros(c, device=device)
-        state[f"{name}.running_mean"] = torch.zeros(c, device=device)
-        state[f"{name}.running_var"] = torch.ones(c, device=device)
-    return state
-
-
-def parameter_names(w: Widths) -> list[str]:
-    """The trainable tensors (everything but the BatchNorm statistics)."""
-    names = list(weight_shapes(w))
-    for bn in batchnorm_names(w):
-        names += [f"{bn}.weight", f"{bn}.bias"]
-    return names
-
-
-# -- forward ---------------------------------------------------------------------------
-
 def fp8_e4m3(t: torch.Tensor) -> torch.Tensor:
     """t through float8 e4m3 with one scale per tensor (amax -> 448); the
     gradient passes straight through."""
     scale = t.detach().abs().amax().clamp_min(1e-30) / FP8_MAX
     q = (t.detach() / scale).to(torch.float8_e4m3fn).to(t.dtype) * scale
     return t + (q - t).detach()
-
-
-def _same(t: torch.Tensor) -> torch.Tensor:
-    return t
-
-
-class Net:
-    """forward(P, obs, train) over a state dict P; `quant` is applied to the
-    inputs and weights of every conv and bf16-class Dense layer."""
-
-    def __init__(self, w: Widths, quant=None):
-        self.w = w
-        self.q = quant or _same
-
-    def conv(self, x, weight, bias=None):
-        k = weight.shape[-1]
-        return F.conv2d(self.q(x), self.q(weight), bias, padding=k // 2)
-
-    def dense(self, x, P, name, quantized=True):
-        q = self.q if quantized else _same
-        return F.linear(q(x), q(P[f"{name}.weight"]), P[f"{name}.bias"])
-
-    @staticmethod
-    def bn(x, P, name, train):
-        if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        else:
-            mean, var = P[f"{name}.running_mean"], P[f"{name}.running_var"]
-        mul = torch.rsqrt(var + BN_EPS) * P[f"{name}.weight"]
-        return (x - mean[None, :, None, None]) * mul[None, :, None, None] \
-            + P[f"{name}.bias"][None, :, None, None]
-
-    @staticmethod
-    def pool(x):
-        mean = x.mean(dim=(2, 3))
-        var = ((x - mean[:, :, None, None]) ** 2).mean(dim=(2, 3))
-        return torch.cat([mean, x.amax(dim=(2, 3)), torch.sqrt(var + 1e-10)], dim=1)
-
-    def block(self, x, P, p, train):
-        out = F.relu(self.bn(self.conv(x, P[f"{p}.conv1.weight"]), P, f"{p}.bn1", train))
-        g = self.dense(F.relu(self.dense(self.pool(x), P, f"{p}.gp_fc1")), P, f"{p}.gp_fc2")
-        out = out + g[:, :, None, None]
-        out = self.bn(self.conv(out, P[f"{p}.conv2.weight"]), P, f"{p}.bn2", train)
-        se = self.dense(F.relu(self.dense(out.mean(dim=(2, 3)), P, f"{p}.se_fc1")),
-                        P, f"{p}.se_fc2")
-        scale, shift = se.chunk(2, dim=1)
-        out = out * torch.sigmoid(scale)[:, :, None, None] + shift[:, :, None, None]
-        return F.relu(out + x)
-
-    def forward(self, P, obs, train: bool):
-        """(policy logits (B, 9, 9, 139), W/D/L logits (B, 3), score (B, 1))."""
-        x = obs.reshape(obs.shape[0], self.w.obs_channels, 9, 9).float()
-        x = F.relu(self.bn(self.conv(x, P["input_conv.weight"]), P, "input_bn", train))
-        for i in range(self.w.num_blocks):
-            x = self.block(x, P, f"block{i}", train)
-        pol = F.relu(self.bn(self.conv(x, P["policy_conv1.weight"]), P, "policy_bn1", train))
-        pol = self.conv(pol, P["policy_conv2.weight"], P["policy_conv2.bias"])
-        pool = self.pool(x)
-        v = F.relu(self.dense(pool, P, "value_fc1"))
-        s = F.relu(self.dense(pool, P, "score_fc1"))
-        # the two last Dense layers run in float32 in the model
-        value = self.dense(v, P, "value_fc2", quantized=False)
-        score = self.dense(s, P, "score_fc2", quantized=False)
-        return pol.permute(0, 2, 3, 1), value, score
-
-    def eval_rows(self, P, obs, rows: int = 512):
-        """The eval forward in blocks of `rows` boards, without gradients."""
-        outs = []
-        with torch.no_grad():
-            for i in range(0, obs.shape[0], rows):
-                outs.append(self.forward(P, obs[i:i + rows], train=False))
-        return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 # -- rollout bookkeeping, GAE, loss, optimizer -----------------------------------------
@@ -265,7 +89,7 @@ class Outputs:
     last: tuple
 
 
-def rollout_outputs(net: Net, P, tr: Transitions) -> Outputs:
+def rollout_outputs(net, P, tr: Transitions) -> Outputs:
     T = tr.obs.shape[0]
     plies = [net.eval_rows(P, tr.obs[t]) for t in range(T)]
     trunc = {t: net.eval_rows(P, o) for t, o in tr.terminal_obs.items()}
@@ -319,25 +143,31 @@ def training_rows(tr: Transitions, out: Outputs, hp: dict) -> dict[str, torch.Te
     }
 
 
-def ppo_terms(outputs, mb: dict, hp: dict, entropy_coeff: float) -> torch.Tensor:
+def ppo_terms(outputs, mb: dict, hp: dict, entropy_coeff: float,
+              rows: int | None = None, labelled=None) -> torch.Tensor:
     """The KataGo-PPO loss of one minibatch as its four weighted terms:
     clipped surrogate, W/D/L cross-entropy over labelled rows, score MSE,
-    and the legal-move entropy (negated); the loss is their sum."""
+    and the legal-move entropy (negated); the loss is their sum. Given the
+    minibatch's `rows` and its count of `labelled` rows, `mb` is a block of
+    it, and the terms are the block's share of the minibatch's means."""
     pol, value_logits, score = outputs
+
+    def mean(x):
+        return x.mean() if rows is None else x.sum() / rows
     logp_all = masked_log_softmax(pol, mb["legal_masks"])
     new_logp = logp_all.gather(1, mb["actions"][:, None])[:, 0]
     ratio = torch.exp(new_logp - mb["old_log_probs"])
     adv = mb["advantages"]
     eps = hp["clip_epsilon"]
-    policy = -torch.minimum(ratio * adv, torch.clamp(ratio, 1 - eps, 1 + eps) * adv).mean()
-    entropy = (-(torch.exp(logp_all) * torch.where(mb["legal_masks"], logp_all, 0.0))
-               .sum(dim=-1)).mean()
+    policy = -mean(torch.minimum(ratio * adv, torch.clamp(ratio, 1 - eps, 1 + eps) * adv))
+    entropy = mean(-(torch.exp(logp_all) * torch.where(mb["legal_masks"], logp_all, 0.0))
+                   .sum(dim=-1))
     cats = mb["value_cats"]
     valid = cats >= 0
     ce = -F.log_softmax(value_logits.float(), dim=-1).gather(1, cats.clamp(min=0)[:, None])[:, 0]
-    n = valid.sum()
+    n = valid.sum() if labelled is None else labelled
     wdl = torch.where(valid, ce, 0.0).sum() / torch.clamp(n, min=1)
-    sq = ((score[:, 0].float() - mb["score_targets"]) ** 2).mean()
+    sq = mean((score[:, 0].float() - mb["score_targets"]) ** 2)
     return torch.stack([hp["lambda_policy"] * policy, hp["lambda_value"] * wdl,
                         hp["lambda_score"] * sq, -entropy_coeff * entropy])
 
@@ -387,28 +217,62 @@ class Steps:
     first_outputs: tuple = ()
 
 
-def follow_steps(net: Net, state: dict, rows: dict, minibatches: list[torch.Tensor],
+def follow_steps(net, state: dict, rows: dict, minibatches: list[torch.Tensor],
                  hp: dict, entropy_coeff: float, names: list[str],
-                 adam: dict | None = None) -> Steps:
+                 adam: dict | None = None, block_rows: int | None = None) -> Steps:
     """Train a copy of `state` on `minibatches` (index tensors into `rows`)
     one Adam step each, as the program's update does; from the optimizer
     state `adam` (name -> (steps, first moment, second moment)) or a fresh
-    one."""
+    one. With `block_rows` (the architecture's TRAIN_ROWS_PER_BLOCK), each
+    minibatch goes through the forward and backward in blocks of that many
+    rows, and the blocks' terms and gradients are summed before the clip;
+    with None, in one."""
     P = {k: v.detach().clone() for k, v in state.items()}
     params = [P[n].requires_grad_(True) for n in names]
     opt = Adam(params, hp["learning_rate"], [adam[n] for n in names] if adam else None)
+    whole = block_rows is None
     losses, first, first_out = [], None, ()
     for k, ix in enumerate(minibatches):
-        mb = {key: v[ix] for key, v in rows.items()}
-        out = net.forward(P, mb["obs"], train=True)
-        if k == 0:
-            first_out = tuple(t.detach().clone() for t in out)
-        terms = ppo_terms(out, mb, hp, entropy_coeff)
-        grads = torch.autograd.grad(terms.sum(), params)
-        grads = [g.detach().clone() for g in grads]
+        n_rows = None if whole else ix.shape[0]
+        labelled = None if whole else (rows["value_cats"][ix] >= 0).sum()
+        terms, grads, outs = None, None, []
+        for b in [ix] if whole else ix.split(block_rows):
+            mb = {key: v[b] for key, v in rows.items()}
+            out = net.forward(P, mb["obs"], train=True)
+            if k == 0:
+                outs.append(tuple(t.detach().clone() for t in out))
+            t = ppo_terms(out, mb, hp, entropy_coeff, n_rows, labelled)
+            g = [x.detach().clone() for x in torch.autograd.grad(t.sum(), params)]
+            if grads is None:
+                terms, grads = t.detach(), g
+            else:
+                terms = terms + t.detach()
+                for acc, x in zip(grads, g):
+                    acc.add_(x)
         clip_by_global_norm_(grads, hp["grad_clip"])
         if k == 0:
+            # one block keeps the forward's own layout (the reading's sums follow it)
+            first_out = outs[0] if whole else tuple(torch.cat(parts) for parts in zip(*outs))
             first = {n: g.clone() for n, g in zip(names, grads)}
         opt.step(grads)
-        losses.append(terms.detach())
+        losses.append(terms)
     return Steps(losses, first, {n: P[n].detach() for n in names}, first_out)
+
+
+# -- the SE-ResNet, which moved to arch/se_resnet.py ------------------------------------
+
+def se_resnet():
+    """arch/se_resnet.py, the module behind the SE-ResNet's names here."""
+    from bench_torch.arch import load
+    return load(Path(__file__).resolve().parent, "se_resnet")
+
+
+_MOVED = {"BN_EPS", "Widths", "weight_shapes", "batchnorm_names", "init_state",
+          "parameter_names", "Net"}
+
+
+def __getattr__(name: str):
+    # looked up on first use, since arch/se_resnet.py imports this module
+    if name in _MOVED:
+        return getattr(se_resnet(), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -23,7 +23,6 @@ import torch
 from . import engine_check
 from . import reference as R
 from .compare import answer_gaps
-from .flops import forward_flops
 from .trace import DeviceTrace, HostSpans
 from .train_cell import build_config
 
@@ -116,7 +115,9 @@ class Setup:
     model_cfg: object
     params: dict
     state: dict
-    widths: R.Widths
+    architecture: str
+    arch: object            # the architecture's reference module
+    widths: object          # its Widths
     blend: float
     N: int
     T: int
@@ -133,10 +134,11 @@ def setup(cell, seed: int, device, tmp: str, forward: str | None = None) -> Setu
     from keisei_tpu_torch.training.value_adapter import get_value_adapter
     config = build_config(cell, seed, tmp)
     tc, ap = config.training, config.algorithm_params
-    widths = R.Widths.from_params(config.model.params)
+    arch = cell.arch()
+    widths = arch.Widths.from_params(config.model.params)
     model, model_cfg = build_model(config.model.architecture, config.model.params)
     model.to(device)
-    state = R.init_state(widths, seed, device)
+    state = arch.init_state(widths, seed, device)
     model.load_state_dict(state, strict=True)
     model.eval()
     adapter = get_value_adapter(get_model_contract(config.model.architecture),
@@ -152,7 +154,8 @@ def setup(cell, seed: int, device, tmp: str, forward: str | None = None) -> Setu
     carry = env.init()
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
-    s = Setup(rollout, carry, g, model, model_cfg, dict(config.model.params), state, widths,
+    s = Setup(rollout, carry, g, model, model_cfg, dict(config.model.params), state,
+              config.model.architecture, arch, widths,
               ap.score_blend_alpha,
               tc.num_games, T, env, proxy, spans, tape)
     call(s)  # the warm-up: every shape, the kernels built and loaded
@@ -193,7 +196,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float, tmp: st
               "unit_s": [b - a for a, b in zip([0.0] + ends, ends)]}
     # the board forwards the algorithm needs: N a ply and one after the
     # last, and the envs cut at max_ply
-    record["window_flops"] = forward_flops(s.widths) * (s.N * (s.T + 1) * calls + truncated)
+    record["window_flops"] = s.arch.forward_flops(s.widths) * (s.N * (s.T + 1) * calls
+                                                               + truncated)
     if trace:
         record["engine_ms"] = [a.elapsed_time(b) for a, b in s.env.events or ()]
         s.env.events = None
@@ -233,23 +237,26 @@ def answers(net_or_fwd, s: Setup, kept: dict, chunk: int) -> tuple[torch.Tensor,
 
 
 def reference_answers(s: Setup, kept: dict, quant=None):
-    net = R.Net(s.widths, quant=quant)
+    net = s.arch.Net(s.widths, quant=quant)
     with R.full_precision(), torch.no_grad():
         return answers(lambda o: net.forward(s.state, o, train=False), s, kept, 512)
 
 
-def readings(s: Setup, kept: dict, control: str | None = None) -> dict:
-    """The program's kept answers (or, with `control`, the program's other
-    forward over the kept rows, in chunks of the cell's batch) against the
-    float32 reference's."""
+def readings(s: Setup, kept: dict, control: bool = False) -> dict:
+    """The program's kept answers against the float32 reference's; with
+    `control`, the architecture's control in the program's place: the
+    program's other forward (`ROLLOUT_CONTROL`) over the kept rows, in
+    chunks of the cell's batch, or the reference in float8."""
     ref_lp, ref_v = reference_answers(s, kept)
-    if control is None:
+    if not control:
         lp, v = kept["log_probs"], kept["values"]
+    elif s.arch.ROLLOUT_CONTROL is None:
+        lp, v = reference_answers(s, kept, quant=R.fp8_e4m3)
     else:
         from keisei_tpu_torch.models.registry import build_model
-        model, cfg = build_model("se_resnet", s.params)
+        model, cfg = build_model(s.architecture, s.params)
         model.to(ref_lp.device).load_state_dict(s.state)
-        fwd = make_forward(control, cfg)
+        fwd = make_forward(s.arch.ROLLOUT_CONTROL, cfg)
         w = fwd.prepare(model.eval())
 
         def run_fwd(obs):
@@ -265,8 +272,8 @@ def readings(s: Setup, kept: dict, control: str | None = None) -> dict:
 
 def check(s: Setup, kept: dict, limits: dict, control: bool = False) -> dict:
     """The kept answers against the reference's (with `control`, the
-    program's int8 forward's), and the engine's transitions against the
+    architecture's control's), and the engine's transitions against the
     rules reference."""
-    got = readings(s, kept, control="int8" if control else None)
+    got = readings(s, kept, control)
     got.update(engine_check.check(s.tape))
     return got

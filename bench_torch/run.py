@@ -14,7 +14,10 @@ plain reference checks what the timed path produced (`correct`).
 
 The last line of stdout is one JSON object; the numbers compared for
 `correct` close it (key "checks") and stderr. Without a card, or with
-fewer cards than the cell asks for, it prints no result and exits 2.
+fewer cards than the cell asks for, it prints no result and exits 2. If
+the process holds JAX or the JAX package once the window has closed, or
+after the check, it names what it found on stderr, prints no result and
+exits 3.
 """
 
 from __future__ import annotations
@@ -46,6 +49,18 @@ import torch  # noqa: E402
 from bench_torch import spec  # noqa: E402
 
 KINDS = {"train_epochs": "bench_torch.train_cell", "rollout_calls": "bench_torch.rollout_cell"}
+# top-level module names the measured process may not hold: JAX and the JAX package
+FOREIGN = frozenset({"jax", "jaxlib", "flax", "keisei_tpu"})
+
+
+class ForeignModules(RuntimeError):
+    """The process holds a module of FOREIGN: the run has no result."""
+
+
+def refuse_foreign(when: str) -> None:
+    found = sorted({name.split(".")[0] for name in list(sys.modules)} & FOREIGN)
+    if found:
+        raise ForeignModules(f"{when}, the process holds {', '.join(found)}")
 
 
 def within(value: float, limit: float) -> bool:
@@ -63,6 +78,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     device = torch.device(device)
     with tempfile.TemporaryDirectory(prefix="bench_torch_") as tmp:
         out = kind.run(cell, seed, seconds, trace, device, t0, tmp)
+    refuse_foreign("once the window had closed")
     if trace:
         metrics = {}
         for m in cell.per_layer:
@@ -97,6 +113,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     except Exception:  # the check itself failed: no reading, not correct
         traceback.print_exc()
         checks = {"check_error": {"value": 1, "limit": 0}}
+    refuse_foreign("after the check")
     line["correct"] = all(within(c["value"], c["limit"]) for c in checks.values()) \
         and out["failed"] == 0
     line["checks"] = checks
@@ -128,7 +145,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     readings: dict = {}
-    line = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda", readings=readings)
+    try:
+        line = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda",
+                        readings=readings)
+    except ForeignModules as e:
+        print(f"no result: {e}", file=sys.stderr)
+        return 3
     for name, v in readings.items():  # beside the compared numbers, not compared
         if name not in line["checks"] and isinstance(v, (int, float)):
             print(f"reading {name} = {v!r}", file=sys.stderr)

@@ -5,7 +5,9 @@ configuration's `file` holds the shipped TOML plus a `[bench]` table
 (source, reduced, assumed); the mix is `traffic/<name>.json`; a per-layer
 metric is `metrics/<name>.py` with `read(record) -> float | None`; a cell's
 limits for `correct` are `limits/<cell>.json` (a null limit: read, not
-compared). Nothing here imports the program.
+compared); the configuration's `model.architecture` names its plain
+reference, `arch/<architecture>.py` (arch/__init__.py). Nothing here
+imports the program.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import json
 import tomllib
 from dataclasses import dataclass
 from pathlib import Path
+
+from bench_torch.arch import load as load_arch
 
 ROOT = Path(__file__).resolve().parent
 REPO = ROOT.parent
@@ -48,6 +52,10 @@ class Cell:
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         return mod.read
+
+    def arch(self):
+        """The configuration's architecture module, arch/<architecture>.py."""
+        return load_arch(self.root, self.config["model"]["architecture"])
 
 
 def _reports(metric: dict, cell: str) -> bool:

@@ -2,12 +2,13 @@
 `SelfPlayTrainer.run_epoch`, back to back, as the trainer runs them.
 
 Set-up builds one trainer from the cell's configuration, loads the seed's
-weights (`reference.init_state`) and runs one epoch, the warm-up of every
-shape, with every env at the initial position as a user's run starts. That
-same trainer then runs the window. Two epochs are checked: the set-up's,
-from the seed's weights and a fresh optimizer, and one of the window's
-first three, drawn from the seed, from the parameters, BatchNorm statistics
-and optimizer state it starts with (copied before it runs). While an epoch
+weights (`init_state` of the configuration's arch/<architecture>.py) and
+runs one epoch, the warm-up of every shape, with every env at the initial
+position as a user's run starts. That same trainer then runs the window.
+Two epochs are checked: the set-up's, from the seed's weights and a fresh
+optimizer, and one of the window's first three, drawn from the seed, from
+the parameters, BatchNorm statistics and optimizer state it starts with
+(copied before it runs). While an epoch
 is checked, recorders on public surfaces keep what it did:
 `trainer.env_core.step` (the engine's transitions), the rollout's
 `masked_policy_sample` (what it stored), forward hooks on `trainer.model`
@@ -218,7 +219,8 @@ class Setup:
     tape: engine_check.Tape
     checked: list           # the checked epochs' Recorders
     state: dict             # the seed's weights
-    widths: R.Widths
+    arch: object            # the architecture's reference module
+    widths: object          # its Widths
     hp: dict
     window_checked: int     # which window epoch is checked
     recorder: Recorder | None = None  # the one armed now
@@ -228,12 +230,13 @@ def setup(cell, seed: int, device, tmp: str) -> Setup:
     from keisei_tpu_torch.training.loop import SelfPlayTrainer
     config = build_config(cell, seed, tmp)
     trainer = SelfPlayTrainer(config, device=device)
-    widths = R.Widths.from_params(config.model.params)
-    state = R.init_state(widths, seed, device)
+    arch = cell.arch()
+    widths = arch.Widths.from_params(config.model.params)
+    state = arch.init_state(widths, seed, device)
     trainer.model.load_state_dict(state, strict=True)
     env = trainer.env_core
     tape = engine_check.Tape(env.num_envs, TRACKED_ENVS, seed, device, env.max_ply)
-    s = Setup(trainer, tape, [], state, widths, hyperparameters(config),
+    s = Setup(trainer, tape, [], state, arch, widths, hyperparameters(config),
               random.Random(int(seed)).randrange(WINDOW_CHECKED))
     step = env.step
 
@@ -319,10 +322,11 @@ def readings(run: Setup, rec: Recorder, quant=None) -> dict:
         off = minibatch_rows_off(rec, S, hp)
         mbs = rec.ix[:CHECKED_STEPS]
         ent = entropy_coeff(hp, rec.epoch)
-        names = R.parameter_names(run.widths)
-        ref_net = R.Net(run.widths)
+        names = run.arch.parameter_names(run.widths)
+        ref_net = run.arch.Net(run.widths)
+        blocks = run.arch.TRAIN_ROWS_PER_BLOCK
         ref_rows = R.training_rows(tr, R.rollout_outputs(ref_net, start, tr), hp)
-        ref = R.follow_steps(ref_net, start, ref_rows, mbs, hp, ent, names, rec.adam)
+        ref = R.follow_steps(ref_net, start, ref_rows, mbs, hp, ent, names, rec.adam, blocks)
         if len(rec.samples) != tr.actions.shape[0]:
             raise RuntimeError(f"the rollout sampled {len(rec.samples)} times, not "
                                f"{tr.actions.shape[0]}")
@@ -340,12 +344,12 @@ def readings(run: Setup, rec: Recorder, quant=None) -> dict:
             grads, params = rec.first_grads, rec.params_after
             out1 = rec.train_out[0] if rec.train_out else None
         else:
-            net = R.Net(run.widths, quant=quant)
+            net = run.arch.Net(run.widths, quant=quant)
             rows = R.training_rows(tr, R.rollout_outputs(net, start, tr), hp)
             answers = answer_gaps(rows["old_log_probs"], rows["values"],
                                   ref_rows["old_log_probs"], ref_rows["values"], tr.masks,
                                   tr.actions)
-            ctl = R.follow_steps(net, start, rows, mbs, hp, ent, names, rec.adam)
+            ctl = R.follow_steps(net, start, rows, mbs, hp, ent, names, rec.adam, blocks)
             losses, grads, params = ctl.losses, ctl.first_grads, ctl.params
             out1 = ctl.first_outputs
     # each step's loss against the reference's, over the sum of the
@@ -393,15 +397,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float, tmp: st
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.monotonic() - start
-    hp = s.hp
-    rows = hp["epochs_per_batch"] * (n * T // hp["batch_size"]) * hp["batch_size"]
-    # the board forwards the algorithm needs: N a ply and one after the
-    # last, and the envs cut at max_ply
-    boards = sum(n * (T + 1) + e.truncated for e in epochs)
-    record = {"N": n, "T": T, "hp": hp, "epochs": [e.as_dict() for e in epochs],
+    record = {"N": n, "T": T, "hp": s.hp, "epochs": [e.as_dict() for e in epochs],
               "window_s": wall, "widths": dataclasses.asdict(s.widths),
               "on_card": device.type == "cuda",
-              "window_flops": training_flops(s.widths, boards, rows * len(epochs)),
+              "window_flops": window_flops(s.arch, s.widths, s.hp, n, T, epochs),
               "unit_s": [b - a for a, b in zip([0.0] + ends, ends)]}
     if trace:
         record["traced"] = traced_epoch(s, device)
@@ -415,6 +414,15 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float, tmp: st
     return {"units": len(epochs), "failed": failed, "setup_s": setup_s,
             "e2e": {"train_env_steps_per_s": n * T * len(epochs) / wall},
             "record": record, "peak": peak, "setup": s}
+
+
+def window_flops(arch, widths, hp: dict, n: int, T: int, epochs: list) -> float:
+    """The model FLOPs the window's epochs need, by the architecture's
+    per-board count: the board forwards of the rollout (N a ply and one
+    after the last, and the envs cut at max_ply) and every trained row."""
+    rows = hp["epochs_per_batch"] * (n * T // hp["batch_size"]) * hp["batch_size"]
+    boards = sum(n * (T + 1) + e.truncated for e in epochs)
+    return training_flops(widths, boards, rows * len(epochs), arch.forward_flops)
 
 
 def traced_epoch(s: Setup, device) -> dict:
