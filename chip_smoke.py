@@ -24,7 +24,13 @@ demonstrator game, the dashboard server's messages); phase 12 runs data
 parallelism on the one card (scripts/parallel_smoke.py: two ranks sharing
 it over gloo train league and self-play b40c256 epochs, held bit-identical
 and to one process's gradient; NCCL at world size 1; the multi-device dry
-run); no kernel lies on those five paths.
+run); no kernel lies on those five paths. Phase 13 checks the train
+path's kernels (ops/train_bn.py: BatchNorm, the global pool and the block's
+epilogues in training mode, forward and backward) against their plain
+versions, times each at B=1,024, C=256, and times a block's and the b40c256
+model's train step on them and on the plain path; the launches it reports
+for them are phase 5's fused update's, counted from 0 (each mode of a
+kernel that takes one on its own).
 The 3x3 conv is checked on every route (wgmma fed by TMA for Cin % 64 == 0,
 the same kernel after a zero pad of the channels for the 50 observation
 planes, mma.sync with 1 / 2 / 4 boards per CTA), with the per-route launch
@@ -490,6 +496,37 @@ def parallel_phase(dev, card_line: str) -> None:
     print(f"phase12 parallel {json.dumps(summary)}")
 
 
+def train_path_phase(dev, card_line: str) -> dict:
+    """The train path's kernels (ops/train_bn.py) against their plain
+    versions over a grid of shapes in f32 and bf16, then each timed at the
+    main path's shape (B=1,024, C=256, bf16) beside its bound, its plain
+    version and cuDNN's F.batch_norm; a block's and the b40c256 model's
+    train step on them and on the plain path."""
+    from keisei_tpu_torch.scripts import profile_train_bn as ptb
+
+    t0 = time.monotonic()
+    # the edges (B=1, 65 rows, C=32), the phase-5 update's minibatch (256 rows;
+    # C=256, and C=32 at policy_bn1) and the training cells' (1,024 rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, c in ((1, 32), (65, 128), (256, 32), (256, 256), (1024, 128), (1024, 256)):
+            errs = ptb.check(b, c, dtype, dev)
+            print(f"phase13 check {dtype} B={b} C={c} "
+                  f"worst_rel_err={max(max(v) for v in errs.values()):.3g}")
+    rows = ptb.measure(dev)
+    kernels = {}
+    for name, r in rows.items():
+        print(f"phase13 {card_line} {name} B=1024 C=256 bf16 ms={r['ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']} rel_err={r['max_rel_err']:.3g}")
+        kernels[name] = dict(max_rel_err=r["max_rel_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                             library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+                             bound_by=r["bound_by"])
+    steps = ptb.steps(dev)
+    print(f"phase13 steps {card_line} {json.dumps(steps)} "
+          f"phase13_s={time.monotonic() - t0:.1f}")
+    return kernels
+
+
 def main() -> int:
     # -- phase 1: the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -512,6 +549,7 @@ def main() -> int:
     from keisei_tpu_torch.scripts import profile_fused_forward as fused
     from keisei_tpu_torch.scripts import profile_int8_mma as probe
     from keisei_tpu_torch.scripts import profile_qblock_parts as qparts
+    from keisei_tpu_torch.scripts import profile_train_bn as ptb
     from keisei_tpu_torch.training.checkpoint import load_checkpoint
     from keisei_tpu_torch.training.config import load_config
     from keisei_tpu_torch.training.loop import SelfPlayTrainer
@@ -950,8 +988,18 @@ def main() -> int:
             conv3x3_hwbc.route_launches.clear()
             fused_gpbias_block.launches = 0
             quantized_gpbias_block.launches = 0
+            ptb.reset_launches()
             trainer.run(2)
             torch.cuda.synchronize()
+            # every train kernel, each mode of the three that take one, launched
+            # by the update; its BatchNorms (input_bn, policy_bn1, two a block)
+            # all on the kernels
+            train_counts = ptb.launch_counts()
+            bn_calls = train_counts["bn_sums"]
+            if bn_calls < 2 * (2 + 2 * config.model.params["num_blocks"]) \
+                    or not all(train_counts.values()):
+                raise AssertionError(f"the {mode} update left the train kernels: "
+                                     f"{train_counts}")
             if dict(conv3x3_hwbc.route_launches) != {"wgmma": conv3x3_hwbc.launches}:
                 raise AssertionError(f"the {mode} path's input conv left the wgmma kernel: "
                                      f"{dict(conv3x3_hwbc.route_launches)}")
@@ -973,12 +1021,13 @@ def main() -> int:
             block = "fused_gpbias_block" if mode == "fused" else "quantized_gpbias_block"
             other = "quantized_gpbias_block" if mode == "fused" else "fused_gpbias_block"
             print(f"phase5 {mode} launches conv3x3_hwbc={counts['conv3x3_hwbc']} "
-                  f"{block}={counts[block]} {other}={counts[other]} min_forwards={forwards}")
+                  f"{block}={counts[block]} {other}={counts[other]} min_forwards={forwards} "
+                  f"train_kernels={json.dumps(train_counts)}")
             if counts[block] < 40 * forwards or counts["conv3x3_hwbc"] < forwards or counts[other]:
                 raise AssertionError(f"the {mode} path did not go through its kernels: {counts}")
             if mode == "fused":
                 launches.update({PADDED_STEM: counts["conv3x3_hwbc"],
-                                 "fused_gpbias_block": counts[block]})
+                                 "fused_gpbias_block": counts[block], **train_counts})
             else:
                 launches["quantized_gpbias_block"] = counts[block]
             ckpts = sorted(os.listdir(tc.checkpoint_dir))
@@ -1040,6 +1089,11 @@ def main() -> int:
     # -- phase 12: data parallelism on the one card ----------------------------------------
     parallel_phase(dev, card_line)
 
+    # -- phase 13: the train path's kernels (PERF.md's PR 19 rows) ----------------------------
+    # (their launches are phase 5's fused update's, counted from 0)
+    train_kernels = train_path_phase(dev, card_line)
+    kernels.update(train_kernels)
+
     sources = {
         PADDED_STEM: ("keisei_tpu_torch/csrc/conv3x3_wgmma.cu", "keisei_tpu/ops/conv3x3.py:69"),
         "conv3x3_hwbc": ("keisei_tpu_torch/csrc/conv3x3_wgmma.cu", "keisei_tpu/ops/conv3x3.py:69"),
@@ -1065,6 +1119,8 @@ def main() -> int:
                                     else "qblock_parts.cu"), "scripts/profile_qblock_parts.py:140"),
             "dot_chain": (csrc + "chain_wgmma.cu", "scripts/profile_qblock_parts.py:217"),
         }[family]
+    for name in train_kernels:
+        sources[name] = (csrc + "train_bn.cu", "none (XLA fuses the train path's chain)")
     summary = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **kernels[name]}
                for name, (src, rep) in sources.items()]

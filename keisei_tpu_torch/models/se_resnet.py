@@ -20,6 +20,12 @@ Numerics follow the flax model where PyTorch's defaults differ:
   (a league snapshot, through `torch.func.functional_call`) runs the same
   way: BatchNorm and the two float32 heads widen its tensors first.
 Layout is NCHW inside; the policy logits leave as (B, 9, 9, 139).
+
+In training mode on a CUDA tensor, BatchNorm, the global pool and each
+block's two epilogues run as hand-written kernels with their own backward
+(models/se_resnet_train.py, ops/train_bn.py), with the same statistics and
+the same (C,)-sized step (`FlaxBatchNorm.batch_affine`); on the CPU, and in
+eval mode, the written-out code below runs.
 """
 
 from __future__ import annotations
@@ -33,12 +39,20 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..utils import tracing
+from . import se_resnet_train as train_path
 from .base import SPATIAL_MOVE_TYPES, KataGoOutput
 
 BN_MOMENTUM = 0.9  # flax convention: running = momentum * running + (1 - momentum) * batch
 BN_EPS = 1e-5
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _train_kernels(x: torch.Tensor) -> bool:
+    """Whether a train-mode forward of x takes the kernels of
+    ops/train_bn.py (models/se_resnet_train.py): on a CUDA tensor."""
+    return x.is_cuda
 
 
 @dataclass(frozen=True)
@@ -84,28 +98,45 @@ class FlaxBatchNorm(nn.Module):
         # rank's `share` of a global batch, and `reduce` sums over the ranks
         self.sync: tuple[Callable[[torch.Tensor], torch.Tensor], float] | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        """The normalised x (then a ReLU, with `relu`); in training mode on
+        a CUDA tensor through the kernels of ops/train_bn.py."""
+        if self.training and _train_kernels(x):
+            return train_path.batch_norm(self, x, relu)
         xf = x.float()
         if self.training:
             mean = xf.mean(dim=(0, 2, 3))
             mean2 = (xf * xf).mean(dim=(0, 2, 3))
-            if self.sync is not None:
-                # the global E[x], E[x^2]: each rank's means weighted by its
-                # share of the rows, summed (differentiably) over the ranks;
-                # one rank (share 1.0) keeps the local values bit for bit
-                reduce, share = self.sync
-                mean, mean2 = reduce(torch.cat([mean, mean2]) * share).chunk(2)
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
-            if self.update_statistics:
-                with torch.no_grad():
-                    self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
-                    self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+            mean, _, mul = self.batch_affine(mean, mean2, self.weight, "plain")
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
-        mul = torch.rsqrt(var + BN_EPS) * self.weight.float()
+            mul = torch.rsqrt(var + BN_EPS) * self.weight.float()
         y = ((xf - mean[None, :, None, None]) * mul[None, :, None, None]
-             + self.bias.float()[None, :, None, None])
-        return y.to(x.dtype)
+             + self.bias.float()[None, :, None, None]).to(x.dtype)
+        return F.relu(y) if relu else y
+
+    def batch_affine(self, mean: torch.Tensor, mean2: torch.Tensor, weight: torch.Tensor,
+                     path: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Train mode, from this rank's E[x] and E[x^2] a channel: the
+        batch's mean, E[x^2] - mean^2 before its clamp at 0, and the scale
+        rsqrt(var + eps) * weight, differentiable; moves the running
+        statistics (unless `update_statistics` is off) and counts the call
+        under `bn.train.<path>` (plain or fused)."""
+        tracing.count("bn.train", path)
+        if self.sync is not None:
+            # the global E[x], E[x^2]: each rank's means weighted by its
+            # share of the rows, summed (differentiably) over the ranks;
+            # one rank (share 1.0) keeps the local values bit for bit
+            reduce, share = self.sync
+            mean, mean2 = reduce(torch.cat([mean, mean2]) * share).chunk(2)
+        var_raw = torch.addcmul(mean2, mean, mean, value=-1.0)
+        var = torch.clamp(var_raw, min=0.0)
+        if self.update_statistics:
+            with torch.no_grad():
+                running = [self.running_mean, self.running_var]
+                torch._foreach_mul_(running, BN_MOMENTUM)
+                torch._foreach_add_(running, [mean, var], alpha=1 - BN_MOMENTUM)
+        return mean, var_raw, torch.rsqrt(var + BN_EPS) * weight.float()
 
 
 def global_pool(x: torch.Tensor) -> torch.Tensor:
@@ -141,6 +172,8 @@ class GlobalPoolBiasBlock(nn.Module):
         self.se_fc2 = nn.Linear(ch // se_reduction, 2 * ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and _train_kernels(x):
+            return train_path.block(self, x)
         out = F.relu(self.bn1(self.conv1(x)))
         g = self.gp_fc2(F.relu(self.gp_fc1(global_pool(x))))
         out = out + g[:, :, None, None].to(out.dtype)
@@ -217,7 +250,7 @@ class SEResNetModel(nn.Module):
             raise ValueError(f"expected obs (B, {p.obs_channels}, 9, 9), got {tuple(obs.shape)}")
         low = p.dtype != torch.float32
         with torch.autocast(device_type=obs.device.type, dtype=p.dtype, enabled=low):
-            x = F.relu(self.input_bn(self.input_conv(obs.float())))
+            x = self.input_bn(self.input_conv(obs.float()), relu=True)
             for blk in self.blocks():
                 if recompute_blocks:
                     x = checkpoint(blk, x, use_reentrant=False,
@@ -225,9 +258,9 @@ class SEResNetModel(nn.Module):
                                                              _statistics_frozen(b)))
                 else:
                     x = blk(x)
-            pol = F.relu(self.policy_bn1(self.policy_conv1(x)))
-            pol = self.policy_conv2(pol)
-            pool = global_pool(x)
+            pol = self.policy_conv2(self.policy_bn1(self.policy_conv1(x), relu=True))
+            pool = (train_path.global_pool(x) if self.training and _train_kernels(x)
+                    else global_pool(x))
             v = F.relu(self.value_fc1(pool))
             s = F.relu(self.score_fc1(pool))
         value = _linear_f32(self.value_fc2, v)

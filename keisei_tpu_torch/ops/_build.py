@@ -36,6 +36,7 @@ LIB_NAME = "libkeisei_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> argument types; every one returns a cudaError_t as int
 SIGNATURES = {
     "keisei_conv3x3_bpc": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -47,6 +48,12 @@ SIGNATURES = {
     "keisei_tiled_mm": [_P, _P, _P, _I, _I, _I, _I, _P],
     "keisei_gemm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "keisei_gemm_chain_clusters": [_I, _I, _P],
+    "keisei_pool_stats": [_P, _P, _I, _I, _I, _P],
+    "keisei_pool_stats_backward": [_P] * 5 + [_I] * 3 + [_P],
+    "keisei_bn_reduce": [_I] + [_P] * 12 + [_I] * 4 + [_P],
+    "keisei_bn_apply": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    "keisei_bn_grad_apply": [_I] + [_P] * 10 + [_I] * 4 + [_P],
+    "keisei_bn_moments_backward": [_P] * 13 + [_I, _I, _F, _F, _P],
 }
 
 

@@ -47,6 +47,14 @@ bf16gemm at the bf16 bound; the
 dot chain exact in int8 and at the bf16 bound in bf16; tiled_mm exact in
 int8 and within 1e-4 of max |ref| in bf16 (f32 output).
 
+The train path's kernels (ops/train_bn.py: BatchNorm's sums and apply, the
+global pool, the block's two epilogues, forward and backward) are held to
+their plain versions at B in {1, 1024, 2048} x C in {32, 128, 256} in f32 and
+bf16; a b10c128-sized float32 model's three PPO minibatches on them to the
+plain path's within 1e-2 (losses; the first minibatch's gradient: the
+float32 twin, ROADMAP C item 9), and under
+synced_batch_stats with a stand-in reduce within 1e-4.
+
 The rules engine on the card gives the CPU engine's legal masks over 200
 random plies at N=1024, with TF32 matmuls on and under bf16 autocast: its
 table matmuls (the ray prefix among them) sum small integers, exact in both.
@@ -75,6 +83,7 @@ from keisei_tpu_torch.scripts.profile_conv_alternatives import (mm_inputs, tiled
                                                                 tiled_mm_reference)
 from keisei_tpu_torch.ops.gemm_chain import chain_plan, hold_to_plain
 from keisei_tpu_torch.scripts.profile_int8_mma import mma_chain, probe_inputs
+from keisei_tpu_torch.scripts import profile_train_bn as train_bn_probe
 from keisei_tpu_torch.utils.timing import TRACE_LEAD, graph_ms
 
 pytestmark = pytest.mark.cuda
@@ -708,3 +717,177 @@ def test_engine_masks_on_the_card_equal_the_cpu_engine(dev):
                 assert torch.equal(states[name].board.cpu(), state.board), (name, t)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# -- the train path's kernels (ops/train_bn.py) ---------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [32, 128, 256])
+@pytest.mark.parametrize("b", [1, 1024, 2048])
+def test_train_bn_kernels_match_plain(dev, b, c, dtype):
+    """Every train-path kernel, forward and backward, against its plain
+    version on the same inputs (one channel of board 0 all zero, its max
+    tied 81 ways): an output in bf16 within 1e-2 of max |ref|, one in f32
+    (sums taken in another order) within 1e-3 (profile_train_bn.errors)."""
+    train_bn_probe.check(b, c, dtype, dev)
+
+
+def _train_step(model, obs, dtype=torch.bfloat16):
+    with torch.autocast("cuda", dtype=dtype, enabled=dtype != torch.float32):
+        out = model(obs)
+    loss = (out.policy_logits.float().pow(2).mean() + out.value_logits.float().sum()
+            + out.score_lead.float().pow(2).sum())
+    loss.backward()
+    return out
+
+
+def test_train_forward_launches_the_train_kernels(dev):
+    """A train-mode forward and backward on the card launches every wrapper
+    of ops/train_bn.py, and every BatchNorm counts as fused under the
+    tracer; eval mode launches none of them."""
+    from keisei_tpu_torch.models.registry import build_model
+    from keisei_tpu_torch.ops import train_bn
+    from keisei_tpu_torch.utils import tracing
+
+    model = build_model("se_resnet", {"num_blocks": 2, "channels": 64,
+                                      "global_pool_channels": 32})[0].to(dev)
+    obs = (torch.rand(32, 50, 9, 9, device=dev) > 0.8).float()
+    wrappers = train_bn_probe.WRAPPERS
+    before = [w.launches for w in wrappers]
+    per_mode = train_bn_probe.launch_counts()
+    tracing.enable()
+    try:
+        model.train()
+        _train_step(model, obs)
+        counts = tracing.counters()
+    finally:
+        tracing.disable()
+    torch.cuda.synchronize()
+    assert all(w.launches > n for w, n in zip(wrappers, before)), \
+        {w.__name__: w.launches - n for w, n in zip(wrappers, before)}
+    # each mode of the wrappers that take one (input_bn and policy_bn1 plain,
+    # a block's bn1 head and bn2 tail), forward and backward
+    grown = {k: v - per_mode[k] for k, v in train_bn_probe.launch_counts().items()}
+    assert all(grown.values()), grown
+    # input_bn, policy_bn1 and two per block
+    assert counts["bn.train"] == counts["bn.train.fused"] == 2 + 2 * 2
+    model.eval()
+    before = [w.launches for w in wrappers]
+    with torch.no_grad():
+        model(obs)
+    assert [w.launches for w in wrappers] == before
+    assert train_bn.bn_sums.launches > 0
+
+
+def _ppo_update(dev, fused: bool, monkeypatch, minibatches: int = 3):
+    """Three PPO minibatches of a b10c128-sized float32 model: the update's
+    loss terms, each minibatch's gradient (before the clip) and the state."""
+    from _torch_parallel_ranks import trajectory
+
+    from keisei_tpu_torch.models import se_resnet
+    from keisei_tpu_torch.models.registry import build_model
+    from keisei_tpu_torch.training import ppo as P
+    from keisei_tpu_torch.training.value_adapter import get_value_adapter
+
+    with monkeypatch.context() as m:
+        if not fused:
+            m.setattr(se_resnet, "_train_kernels", lambda x: False)
+        data, nv = trajectory(5, T=minibatches, N=16)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = build_model("se_resnet", {"num_blocks": 10, "channels": 128,
+                                              "global_pool_channels": 64, "value_fc_size": 128,
+                                              "score_fc_size": 64, "dtype": "float32"})[0].to(dev)
+        cfg = P.KataGoPPOParams(batch_size=16, epochs_per_batch=1)
+        traj = P.Trajectory(**{k: torch.from_numpy(v).to(dev) for k, v in data.items()})
+        perms = [torch.randperm(16 * minibatches, generator=torch.Generator().manual_seed(1))]
+        update = P.make_ppo_update(model, get_value_adapter("katago"), cfg,
+                                   P.make_optimizer(model, cfg))
+        grads, backward = [], update.backward
+
+        def recorded(*args, **kwargs):
+            out = backward(*args, **kwargs)
+            grads.append(torch.cat([p.grad.reshape(-1) for p in update.params]))
+            return out
+
+        update.backward = recorded
+        metrics = update(traj, torch.from_numpy(nv).to(dev), None, 0.01, perms=perms)
+    return metrics, grads, model.state_dict()
+
+
+def test_ppo_minibatches_on_the_train_kernels_match_the_plain_path(dev, monkeypatch):
+    """Three PPO minibatches of a b10c128-sized float32 model on the
+    kernels and on the plain path: the loss terms over the three, the first
+    minibatch's gradient (L2 over every parameter, PR 12's gate) and the
+    running statistics within 1e-2, the float32 twin's bound (ROADMAP C
+    item 9). Later gradients and the parameters are not compared: Adam's
+    first steps are +-lr an element, so an element whose gradient is at
+    rounding level steps either way on the two sides, and the third
+    minibatch's gradients drift ~1% apart with the plain versions alone."""
+    want, want_grads, w_state = _ppo_update(dev, False, monkeypatch)
+    got, got_grads, g_state = _ppo_update(dev, True, monkeypatch)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-2, abs=1e-6), k
+    assert len(got_grads) == len(want_grads) == 3
+    assert float((got_grads[0] - want_grads[0]).norm()) <= 1e-2 * float(want_grads[0].norm())
+    for k, v in w_state.items():
+        if "running" in k:
+            assert float((g_state[k] - v).norm()) <= 1e-2 * float(v.norm()), k
+
+
+@pytest.mark.parametrize("share", [0.5, 1.0])
+def test_synced_batch_stats_on_the_train_kernels_match_the_plain_path(dev, monkeypatch, share):
+    """Under synced_batch_stats with a stand-in reduce (twice the sum, as
+    two equal ranks would give), the kernels' forward, gradients and
+    running statistics equal the plain path's within 1e-4 in float32."""
+    from keisei_tpu_torch.models import se_resnet
+    from keisei_tpu_torch.models.registry import build_model
+
+    obs = (torch.rand(48, 50, 9, 9, device=dev) > 0.8).float()
+    runs = []
+    for fused in (False, True):
+        with monkeypatch.context() as m:
+            if not fused:
+                m.setattr(se_resnet, "_train_kernels", lambda x: False)
+            torch.manual_seed(0)
+            model = build_model("se_resnet", {"num_blocks": 2, "channels": 64,
+                                              "global_pool_channels": 32,
+                                              "dtype": "float32"})[0].to(dev).train()
+            with se_resnet.synced_batch_stats(model, lambda t: t * 2, share):
+                out = _train_step(model, obs, torch.float32)
+            runs.append((out.policy_logits.detach(),
+                         {k: p.grad for k, p in model.named_parameters()},
+                         {k: b for k, b in model.named_buffers()}))
+    (lw, gw, bw), (lg, gg, bg) = runs
+    assert float((lg - lw).abs().max()) <= 1e-4 * float(lw.abs().max())
+    for k in gw:
+        assert float((gg[k] - gw[k]).norm()) <= 1e-4 * max(float(gw[k].norm()), 1e-6), k
+    for k in bw:
+        assert float((bg[k].float() - bw[k].float()).abs().max()) <= \
+            1e-4 * max(float(bw[k].float().abs().max()), 1.0), k
+
+
+def test_train_kernels_reject_what_they_do_not_take(dev):
+    from keisei_tpu_torch.ops import train_bn
+
+    y = torch.randn(4, 32, 9, 9, device=dev)
+    af = tuple(torch.ones(32, device=dev) for _ in range(3))
+    with pytest.raises(TypeError):
+        train_bn.bn_sums(y.half())
+    with pytest.raises(ValueError):
+        train_bn.bn_sums(y.transpose(0, 1))
+    with pytest.raises(ValueError):
+        train_bn.pool_stats(y.reshape(4, 32, 81))
+    with pytest.raises(ValueError):
+        train_bn.bn_apply("plain", y, (af[0][:16], af[1], af[2]))
+    with pytest.raises(TypeError):
+        train_bn.bn_apply("plain", y, (af[0].double(), af[1], af[2]))
+    with pytest.raises(ValueError):
+        train_bn.bn_apply("tail", y, af, x=y)
+    with pytest.raises(TypeError):
+        train_bn.bn_apply("head", y, af, g=torch.ones(4, 32, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        train_bn.bn_grad_sums("head", y, y.bfloat16(), af)
+    with pytest.raises(ValueError):
+        train_bn.bn_apply("middle", y, af)

@@ -180,14 +180,18 @@ def test_block_plan_refuses_other_widths():
 
 def _c_entries():
     """name -> ctypes argument list, read off the `extern "C"` definitions in
-    csrc/*.cu: a pointer parameter is a c_void_p, an int a c_int."""
+    csrc/*.cu: a pointer parameter is a c_void_p, an int a c_int, a float a
+    c_float."""
     entries = {}
     for src in sorted(_build.CSRC.glob("*.cu")):
         for name, params in re.findall(r"^int (keisei_\w+)\(([^)]*)\)\s*\{", src.read_text(),
                                        flags=re.M):
             assert name not in entries, f"{name} defined twice"
-            entries[name] = [_build._P if "*" in p else _build._I for p in params.split(",")]
-            assert all("*" in p or re.match(r"\s*int \w+$", p) for p in params.split(",")), params
+            entries[name] = [_build._P if "*" in p else
+                             _build._F if re.match(r"\s*float \w+$", p) else _build._I
+                             for p in params.split(",")]
+            assert all("*" in p or re.match(r"\s*(int|float) \w+$", p)
+                       for p in params.split(",")), params
     return entries
 
 

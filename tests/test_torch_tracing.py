@@ -14,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from keisei_tpu_torch.env.vec_env import EnvCore
 from keisei_tpu_torch.models.registry import build_model, get_model_contract
+from keisei_tpu_torch.models.se_resnet import FlaxBatchNorm
 from keisei_tpu_torch.training.config import config_from_dict
 from keisei_tpu_torch.training.loop import SelfPlayTrainer
 from keisei_tpu_torch.training.ppo import KataGoPPOParams, make_optimizer, make_ppo_update
@@ -201,7 +202,11 @@ def test_ppo_update_records_each_minibatch(tracer):
         assert [c["name"] for c in children(spans, m)] == ["backward", "clip", "optimizer"]
     assert [s["name"] for s in spans if s["parent"] is None] == \
         ["update.prepare"] + ["minibatch"] * len(mbs) + ["update.means"]
-    assert tracer.counters() == {"host_syncs": 1, "host_syncs.update.means": 1}
+    # one host sync; each train-mode BatchNorm call counted by its path (the
+    # CPU's written-out code)
+    bns = sum(isinstance(m, FlaxBatchNorm) for m in model.modules()) * len(mbs)
+    assert tracer.counters() == {"host_syncs": 1, "host_syncs.update.means": 1,
+                                 "bn.train": bns, "bn.train.plain": bns}
 
 
 def trainer_config(tmp_path, seed=0):
