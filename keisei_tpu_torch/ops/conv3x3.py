@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["conv3x3_hwbc", "conv3x3_hwbc_reference", "conv3x3_bpc", "conv_route", "ConvRoute",
-           "pick_batch_tile", "pad_channels", "padded_channels", "BOARDS_PER_CTA", "WGMMA_BOARDS"]
+           "pad_channels", "padded_channels", "BOARDS_PER_CTA", "WGMMA_BOARDS"]
 
 SUPPORTED_COUT = (128, 256)
 WGMMA_BOARDS = (64, 128)                 # the wgmma kernel's tile heights
@@ -96,16 +96,6 @@ def pad_channels(t: torch.Tensor, dim: int) -> torch.Tensor:
     """t with zeros appended along `dim` up to padded_channels (a copy)."""
     pad = [0, 0] * (t.dim() - 1 - dim) + [0, padded_channels(t.shape[dim]) - t.shape[dim]]
     return F.pad(t, pad)
-
-
-def pick_batch_tile(n: int, preferred: int = 16) -> int:
-    """Largest divisor of n that is <= preferred (the JAX kernel's grid
-    tile). The CUDA kernels choose their own tiles and need none; kept so
-    callers written against the JAX signature port unchanged."""
-    bt = min(preferred, n)
-    while n % bt:
-        bt -= 1
-    return bt
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:

@@ -4,19 +4,16 @@ Learner ranks take cuda:0 .. cuda:L-1 of their host (one rank per card,
 `learner_device`). A role that should not contend with them, such as
 in-process tournament rounds (`[league] tournament_device`) or a sidecar
 worker's `--device`, names a card outside them: cuda:L or higher.
-`parse_device` is utils/device.py's; `device_context` makes a card the
-current one for code that allocates on "cuda" without an index.
+`parse_device` is utils/device.py's.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
 from ..utils.device import parse_device
 
-__all__ = ["device_context", "learner_device", "parse_device"]
+__all__ = ["learner_device", "parse_device"]
 
 
 def learner_device(platform: str, local_rank: int) -> torch.device:
@@ -25,11 +22,3 @@ def learner_device(platform: str, local_rank: int) -> torch.device:
     if platform == "cpu":
         return torch.device("cpu")
     return parse_device(f"cuda:{local_rank}")
-
-
-def device_context(spec):
-    """torch.cuda.device of the spec'd card; a null context for the CPU."""
-    dev = parse_device(spec)
-    if dev.type != "cuda":
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)

@@ -29,11 +29,9 @@ Two paths, as in the reference:
 Shared semantics: rewards accumulate in learner perspective; transitions
 finalize where the outcome resolved; truncation bootstraps -V(terminal
 obs) sign-corrected to the learner; trailing un-finalized pendings form
-the last row, bootstrapped by the sign-corrected V(obs_T).
-
-The truncation bootstrap is a real branch: its extra forward runs only on
-plies where it is needed (a host-side check of one flag per ply, as in
-the self-play rollout).
+the last row, bootstrapped by the sign-corrected V(obs_T). The pieces of
+a ply (span, learner forward and draw, engine step, truncation bootstrap,
+counts, tail) are the self-play rollout's (training/rollout.py).
 
 Data parallelism (`mesh`): rank r runs the columns of global envs
 [r N/W, (r+1) N/W) on an EnvCore of N/W envs. Every rule above is read in
@@ -47,6 +45,7 @@ counts.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, replace
 from typing import Callable
 
@@ -55,8 +54,9 @@ from torch.func import functional_call
 
 from ..env.vec_env import EnvCore
 from ..utils import tracing
-from .ppo import SCORE_NORMALIZATION, Trajectory, compute_value_cats, masked_policy_sample
-from .rollout import RolloutStats
+from .ppo import SCORE_NORMALIZATION, compute_value_cats
+from .rollout import (EagerForward, Learner, RolloutStats, empty_trajectory, engine_step, ply,
+                      ply_counts, rollout_tail, truncation_bootstrap, write_row)
 
 # sampler(ply, seat, block, masks) -> actions or None: replaces the draw of
 # one forward (seat "learner" with block None, or "opponent" with block k),
@@ -144,7 +144,7 @@ class LeagueStats:
                 *self.opp_draws, self.parity_mismatch]
         t = mesh.all_reduce_(torch.tensor(flat, dtype=torch.int64, device=mesh.device))
         with tracing.span("rollout.summed", sync=2):
-            return _league_stats(t[:-1], K, int(t[-1]))
+            return _league_stats(t[:-1].tolist(), K, int(t[-1]))
 
 
 def make_league_rollout(env_core: EnvCore, model: torch.nn.Module, adapter, num_steps: int,
@@ -156,16 +156,18 @@ def make_league_rollout(env_core: EnvCore, model: torch.nn.Module, adapter, num_
     `opp_vars` is the K-stacked state dict (stack_cohort_variables), of
     the learner's architecture. traj is (T/2 + 1, n) on the compact path,
     (T + 1, n) on the dynamic path, for the n = env_core.num_envs envs of
-    this rank of `mesh` (all N envs without one); stats count them."""
+    this rank of `mesh` (all N envs without one); stats count them. The
+    learner's forward is EagerForward, through the same protocol as
+    make_selfplay_rollout's `forward_fn`."""
     world, rank = (mesh.world_size, mesh.rank) if mesh is not None else (1, 0)
     cols = _Columns(env_core.num_envs, rank, world, env_core.device)
     if cols.N % k_opp != 0:
         raise ValueError(f"num_envs {cols.N} must divide by cohort size {k_opp}")
-    opp = opponent_module(model)
+    forwards = functools.partial(_Forwards, EagerForward(), model,
+                                 opponent_module(model), adapter, env_core.num_channels)
     if compact_supported(num_steps, k_opp, color_randomization):
-        return _make_compact_rollout(env_core, model, opp, adapter, num_steps, k_opp, cols)
-    return _make_dynamic_rollout(env_core, model, opp, adapter, num_steps, k_opp,
-                                 color_randomization, cols)
+        return _make_compact_rollout(env_core, forwards, num_steps, k_opp, cols)
+    return _make_dynamic_rollout(env_core, forwards, num_steps, k_opp, color_randomization, cols)
 
 
 class _Columns:
@@ -189,79 +191,37 @@ class _Columns:
         return [(k, sl) for k, sl in out if sl.stop > sl.start]
 
 
-class _Forwards:
-    """The learner's forward and the K opponent slots' forwards, with the
-    sampler hook; opponents' values and log-probs are discarded."""
+class _Forwards(Learner):
+    """The learner's forward (Learner) and the K opponent slots' forwards,
+    with the sampler hook; opponents' values and log-probs are discarded."""
 
-    def __init__(self, model, opp_model, adapter, opp_vars, generator, sampler, C):
-        self.model, self.opp_model, self.adapter = model, opp_model, adapter
+    def __init__(self, forward_fn, model, opp_model, adapter, C, opp_vars, generator, sampler):
+        super().__init__(forward_fn, model, adapter, generator, C)
+        self.opp_model, self.sampler = opp_model, sampler
         self.slots = [{k: v[i] for k, v in opp_vars.items()}
                       for i in range(next(iter(opp_vars.values())).shape[0])]
-        self.generator, self.sampler, self.C = generator, sampler, C
 
-    def learner_out(self, obs):
-        return self.model(obs.reshape(-1, self.C, 9, 9))
+    def _hook(self, t, seat, k):
+        return functools.partial(self.sampler, t, seat, k) if self.sampler else None
 
-    def learner(self, ply, obs, masks):
-        with tracing.span("forward", device=obs.device):
-            out = self.learner_out(obs)
-        with tracing.span("sample"):
-            forced = self.sampler(ply, "learner", None, masks) if self.sampler else None
-            return masked_policy_sample(out, masks, self.adapter, self.generator,
-                                        actions=forced)
+    def learner(self, t, obs, masks):
+        return self.act(obs, masks, self._hook(t, "learner", None))
 
-    def opponent(self, ply, k, obs, masks):
+    def opponent(self, t, k, obs, masks):
         with tracing.span("forward.opponent", index=k):
             out = functional_call(self.opp_model, self.slots[k],
                                   (obs.reshape(-1, self.C, 9, 9),), strict=True)
-        with tracing.span("sample"):
-            forced = self.sampler(ply, "opponent", k, masks) if self.sampler else None
-            return masked_policy_sample(out, masks, self.adapter, self.generator,
-                                        actions=forced)[0]
+        return self.sample(out, masks, self._hook(t, "opponent", k))[0]
 
     def value_to_learner(self, obs, stm, learner_color):
         """V(obs) from the learner's side: the model's value is the side to
         move's, so it is negated where the opponent is to move."""
-        v = self.adapter.scalar_value_blended(self.learner_out(obs))
+        v = self.value(obs)
         return torch.where(stm == learner_color, v, -v)
 
 
-def _empty_trajectory(rows: int, N: int, C: int, A: int, dev) -> Trajectory:
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty((rows, N) + shape, dtype=dtype, device=dev)
-
-    return Trajectory(
-        obs=empty(C, 81), actions=empty(dtype=torch.int64), log_probs=empty(),
-        values=empty(), rewards=empty(), dones=empty(dtype=torch.bool),
-        terminated=empty(dtype=torch.bool), legal_masks=empty(A, dtype=torch.bool),
-        value_cats=empty(dtype=torch.int64), score_targets=empty(),
-        next_value_override=empty(), valid=empty(dtype=torch.bool))
-
-
-def _write_row(traj: Trajectory, t: int, cols: slice, row: dict) -> None:
-    for name, value in row.items():
-        getattr(traj, name)[t, cols] = value
-
-
-def _stat_counts(eo, done, r_l, pre_stm, K: int, block: torch.Tensor) -> torch.Tensor:
-    """(7 + 3K,) counts of one ply: RolloutStats' fields, then the learner's
-    wins, losses and draws per opponent block (`block`: each column's)."""
-    term = eo.terminated
-    l_win, l_loss, l_draw = term & (r_l > 0), term & (r_l < 0), term & (r_l == 0)
-    win_b = ((eo.reward > 0) & (pre_stm == 0)) | ((eo.reward < 0) & (pre_stm == 1))
-    win_w = ((eo.reward > 0) & (pre_stm == 1)) | ((eo.reward < 0) & (pre_stm == 0))
-    base = torch.stack([
-        done.sum(), (win_b & term).sum(), (win_w & term).sum(), l_draw.sum(), term.sum(),
-        (eo.truncated & ~eo.terminated).sum(), torch.where(done, eo.ply_count, 0).sum()])
-    outcomes = torch.stack([l_win, l_loss, l_draw]).long()
-    per_block = torch.zeros(3, K, dtype=torch.int64, device=outcomes.device)
-    per_block.index_add_(1, block, outcomes)
-    return torch.cat([base, per_block.reshape(-1)])
-
-
-def _league_stats(counts: torch.Tensor, K: int, mismatch: int) -> LeagueStats:
-    c = [int(v) for v in counts.tolist()]
-    return LeagueStats(base=RolloutStats(*c[:7]), opp_wins=c[7:7 + K],
+def _league_stats(c: list[int], K: int, mismatch: int) -> LeagueStats:
+    return LeagueStats(base=RolloutStats.of(c), opp_wins=c[7:7 + K],
                        opp_losses=c[7 + K:7 + 2 * K], opp_draws=c[7 + 2 * K:],
                        parity_mismatch=mismatch)
 
@@ -285,13 +245,9 @@ def _tail_row(pend: PendingState, deferred: bool) -> dict:
                 next_value_override=override, valid=pend.valid)
 
 
-# ---------------------------------------------------------------------------
-# Compact (parity-locked) path
-# ---------------------------------------------------------------------------
-
-
-def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_steps: int,
-                          k_opp: int, cols: _Columns):
+def _make_compact_rollout(env_core: EnvCore, forwards, num_steps: int, k_opp: int,
+                          cols: _Columns):
+    """The compact (parity-locked) path."""
     n, C, A, dev = cols.n, env_core.num_channels, env_core.action_space, env_core.device
     N = cols.N
     B = N // k_opp  # block size per opponent
@@ -309,7 +265,7 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
     finalize_cols = [cols.local((1 - p) * H, (2 - p) * H) for p in (0, 1)]
     opp_blocks = [cols.blocks(range(KH, k_opp), B), cols.blocks(range(KH), B)]
 
-    def sub_step(fw: _Forwards, p: int, ply: int, t2: int, traj, carry):
+    def sub_step(fw: _Forwards, p: int, t: int, t2: int, traj, carry):
         """One ply at static parity p: the learner half [pH, (p+1)H) moves;
         the pendings the other half opened last ply finalize into row t2."""
         env_states, obs, masks, learner_color, pend, counts, mismatch = carry
@@ -321,17 +277,16 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
         logp_l_full = torch.zeros(n, device=dev)
         v_l_full = torch.zeros(n, device=dev)
         if ls.stop > ls.start:  # no learner forward on a rank without its envs
-            a_l, logp_l, v_l = fw.learner(ply, obs[ls], masks[ls])
+            a_l, logp_l, v_l = fw.learner(t, obs[ls], masks[ls])
             actions[ls] = a_l_full[ls] = a_l
             logp_l_full[ls], v_l_full[ls] = logp_l, v_l
         for kb, sl in opp_blocks[p]:
-            actions[sl] = fw.opponent(ply, kb, obs[sl], masks[sl])
+            actions[sl] = fw.opponent(t, kb, obs[sl], masks[sl])
 
         pre_stm = env_states.stm.int()
         mismatch = mismatch + (learner_to_move != (pre_stm == learner_color)).sum()
 
-        with tracing.span("engine.step", device=dev):
-            env_states, eo = env_core.step(env_states, actions)
+        env_states, eo = engine_step(env_core, env_states, actions)
         done = eo.terminated | eo.truncated
         # reward in learner perspective; the engine reports the last mover's
         r_l = torch.where(learner_to_move, eo.reward, -eo.reward)
@@ -350,12 +305,9 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
         # truncation bootstrap: -V(terminal obs) to the learner; one forward
         # serves finalize-time truncations and deferred learner-move ones
         trunc = eo.truncated & ~eo.terminated
-        with tracing.span("truncation.check", sync=1):
-            cut = bool((trunc & (fin | learner_to_move)).any())
-        if cut:
-            with tracing.span("truncation.forward"):
-                tv_l = fw.value_to_learner(eo.terminal_obs, 1 - pre_stm, learner_color)
-        else:
+        tv_l = truncation_bootstrap(trunc & (fin | learner_to_move), lambda: fw.value_to_learner(
+            eo.terminal_obs, 1 - pre_stm, learner_color))
+        if tv_l is None:
             tv_l = torch.zeros(n, device=dev)
         with tracing.span("store"):
             slot_override = torch.where(pend.done, pend.override,
@@ -363,7 +315,7 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
 
             # 3. the compacted row of the finalize half
             fin_f = fin[fs]
-            _write_row(traj, t2, fs, dict(
+            write_row(traj, t2, fs, dict(
                 obs=torch.where(fin_f[:, None, None], pend.obs[fs], obs[fs]),
                 actions=torch.where(fin_f, pend.action[fs], 0),
                 log_probs=torch.where(fin_f, pend.log_prob[fs], 0.0),
@@ -395,51 +347,41 @@ def _make_compact_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
             # 5. parity-locked color on episode end: the fresh game (stm = 0)
             # has the learner move iff next ply's parity is the env's half
             learner_color = torch.where(done, b_env ^ (1 - p), learner_color)
-            counts = counts + _stat_counts(eo, done, r_l, pre_stm, k_opp, block)
+            counts = counts + ply_counts(eo, done, trunc, pre_stm, r_l, block, k_opp)
         return (env_states, eo.obs, eo.legal_mask, learner_color, pend, counts, mismatch)
-
-    def ply_step(fw: _Forwards, p: int, ply: int, t2: int, traj, carry):
-        with tracing.span("ply", index=ply):
-            tracing.count("plies")
-            return sub_step(fw, p, ply, t2, traj, carry)
 
     @torch.no_grad()
     @tracing.traced("rollout")
     def rollout(opp_vars: dict, env_states, obs, masks, learner_color,
                 generator: torch.Generator | None, sampler: Sampler | None = None,
                 recolor: Recolor | None = None):
-        model.eval()
-        fw = _Forwards(model, opp_model, adapter, opp_vars, generator, sampler, C)
-        traj = _empty_trajectory(T2 + 1, n, C, A, dev)
+        fw = forwards(opp_vars, generator, sampler)
+        traj = empty_trajectory(T2 + 1, n, C, A, dev, valid=True)
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         carry = (env_states, obs, masks, learner_color.int(),
                  init_pending(n, (C, 81), A, dev),
                  torch.zeros(7 + 3 * k_opp, dtype=torch.int64, device=dev), zero)
         for t2 in range(T2):
             # row t2: columns [H, N) finalize at parity 0, [0, H) at parity 1
-            carry = ply_step(fw, 0, 2 * t2, t2, traj, carry)
-            carry = ply_step(fw, 1, 2 * t2 + 1, t2, traj, carry)
+            for p in (0, 1):
+                with ply(2 * t2 + p):
+                    carry = sub_step(fw, p, 2 * t2 + p, t2, traj, carry)
         env_states, obs, masks, learner_color, pend, counts, mismatch = carry
 
         # trailing row: the second half holds a pending opened at the final
         # ply; open ones are bootstrapped by V(obs_T) to the learner
-        with tracing.span("forward.last"):
-            next_value = fw.value_to_learner(obs, env_states.stm.int(), learner_color)
-        _write_row(traj, T2, slice(0, n), _tail_row(pend, deferred=True))
-        with tracing.span("rollout.stats", sync=2):
-            stats = _league_stats(counts, k_opp, int(mismatch))
-        return (env_states, obs, masks, learner_color), traj, next_value, stats
+        write_row(traj, T2, slice(0, n), _tail_row(pend, deferred=True))
+        next_value, (c, m) = rollout_tail(lambda: fw.value_to_learner(
+            obs, env_states.stm.int(), learner_color), counts, mismatch)
+        return (env_states, obs, masks, learner_color), traj, next_value, \
+            _league_stats(c, k_opp, m)
 
     return rollout
 
 
-# ---------------------------------------------------------------------------
-# Dynamic (full-batch select) fallback path
-# ---------------------------------------------------------------------------
-
-
-def _make_dynamic_rollout(env_core: EnvCore, model, opp_model, adapter, num_steps: int,
-                          k_opp: int, color_randomization: bool, cols: _Columns):
+def _make_dynamic_rollout(env_core: EnvCore, forwards, num_steps: int, k_opp: int,
+                          color_randomization: bool, cols: _Columns):
+    """The dynamic (full-batch select) fallback path."""
     n, C, A, dev = cols.n, env_core.num_channels, env_core.action_space, env_core.device
     B = cols.N // k_opp  # block size per opponent
     block = cols.global_index // B
@@ -451,15 +393,13 @@ def _make_dynamic_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
     def rollout(opp_vars: dict, env_states, obs, masks, learner_color,
                 generator: torch.Generator | None, sampler: Sampler | None = None,
                 recolor: Recolor | None = None):
-        model.eval()
-        fw = _Forwards(model, opp_model, adapter, opp_vars, generator, sampler, C)
-        traj = _empty_trajectory(num_steps + 1, n, C, A, dev)
+        fw = forwards(opp_vars, generator, sampler)
+        traj = empty_trajectory(num_steps + 1, n, C, A, dev, valid=True)
         learner_color = learner_color.int()
         pend = init_pending(n, (C, 81), A, dev)
         counts = torch.zeros(7 + 3 * k_opp, dtype=torch.int64, device=dev)
         for t in range(num_steps):
-            with tracing.span("ply", index=t):
-                tracing.count("plies")
+            with ply(t):
                 pre_stm = env_states.stm.int()
                 learner_to_move = pre_stm == learner_color
 
@@ -469,8 +409,7 @@ def _make_dynamic_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
                     a_o[sl] = fw.opponent(t, k, obs[sl], masks[sl])
                 actions = torch.where(learner_to_move, a_l, a_o)
 
-                with tracing.span("engine.step", device=dev):
-                    env_states, eo = env_core.step(env_states, actions)
+                env_states, eo = engine_step(env_core, env_states, actions)
                 done = eo.terminated | eo.truncated
                 r_l = torch.where(learner_to_move, eo.reward, -eo.reward)
                 learner_next = eo.current_player.int() == learner_color
@@ -488,16 +427,12 @@ def _make_dynamic_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
                 slot_reward = torch.where(fin_prior, reward, r_l)
                 slot_term = valid_slot & eo.terminated
                 trunc = eo.truncated & ~eo.terminated
-                with tracing.span("truncation.check", sync=1):
-                    cut = bool((trunc & valid_slot).any())
-                if cut:
-                    with tracing.span("truncation.forward"):
-                        tv_l = fw.value_to_learner(eo.terminal_obs, 1 - pre_stm, learner_color)
-                    override = torch.where(trunc & valid_slot, tv_l, nan)
-                else:
-                    override = nan
+                cut = trunc & valid_slot
+                tv_l = truncation_bootstrap(cut, lambda: fw.value_to_learner(
+                    eo.terminal_obs, 1 - pre_stm, learner_color))
+                override = nan if tv_l is None else torch.where(cut, tv_l, nan)
                 with tracing.span("store"):
-                    _write_row(traj, t, slice(0, n), dict(
+                    write_row(traj, t, slice(0, n), dict(
                         obs=torch.where(fin_prior[:, None, None], pend.obs, obs),
                         actions=torch.where(fin_prior, pend.action, a_l),
                         log_probs=torch.where(fin_prior, pend.log_prob, logp_l),
@@ -529,15 +464,14 @@ def _make_dynamic_rollout(env_core: EnvCore, model, opp_model, adapter, num_step
                         new_color = (recolor(t) if recolor is not None else
                                      torch.rand(n, generator=generator, device=dev) < 0.5)
                         learner_color = torch.where(done, new_color.to(dev).int(), learner_color)
-                    counts += _stat_counts(eo, done, r_l, pre_stm, k_opp, block)
+                    counts += ply_counts(eo, done, trunc, pre_stm, r_l, block, k_opp)
                 obs, masks = eo.obs, eo.legal_mask
 
-        with tracing.span("forward.last"):
-            next_value = fw.value_to_learner(obs, env_states.stm.int(), learner_color)
-        _write_row(traj, num_steps, slice(0, n), _tail_row(pend, deferred=False))
-        with tracing.span("rollout.stats", sync=1):
-            stats = _league_stats(counts, k_opp, 0)
-        return (env_states, obs, masks, learner_color), traj, next_value, stats
+        write_row(traj, num_steps, slice(0, n), _tail_row(pend, deferred=False))
+        next_value, (c,) = rollout_tail(lambda: fw.value_to_learner(
+            obs, env_states.stm.int(), learner_color), counts)
+        return (env_states, obs, masks, learner_color), traj, next_value, \
+            _league_stats(c, k_opp, 0)
 
     return rollout
 

@@ -7,8 +7,10 @@ rewards come from the engine in last-mover perspective, and bootstrap
 overrides handle truncation (-V(terminal_obs)) and ply alternation
 (-values[t+1]).
 
-The truncation bootstrap is a real branch: the extra forward runs only on
-the plies where some env truncated (a host-side check of one flag per ply).
+The pieces of a ply below are also the league rollouts' (league_rollout.py),
+so each span and counter of a ply has one call site. The truncation bootstrap
+is a real branch: the extra forward runs only on the plies where some env
+truncated (a host-side check of one flag per ply).
 
 Envs are independent, so a data-parallel rank runs this rollout on its own
 N/W envs with its own generator; the trainer sums the ranks' counts
@@ -17,7 +19,9 @@ N/W envs with its own generator; the trainer sums the ranks' counts
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Callable
 
@@ -54,6 +58,11 @@ class RolloutStats:
     truncated: int
     total_ply: int
 
+    @classmethod
+    def of(cls, counts: list[int]) -> "RolloutStats":
+        """The stats of a ply_counts sum read to the host (its first seven)."""
+        return cls(*counts[:7])
+
     def summed(self, mesh) -> "RolloutStats":
         """The counts summed over the ranks of `mesh` (one all-reduce):
         the epoch's counts over the global env batch. Itself on one rank."""
@@ -68,87 +77,143 @@ class RolloutStats:
 Sampler = Callable[[int, torch.Tensor], torch.Tensor]
 
 
+def empty_trajectory(rows: int, n: int, C: int, A: int, dev, valid: bool = False) -> Trajectory:
+    """(rows, n, ...) storage, next_value_override NaN; `valid` for the league."""
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty((rows, n) + shape, dtype=dtype, device=dev)
+
+    return Trajectory(
+        obs=empty(C, 81), actions=empty(dtype=torch.int64), log_probs=empty(),
+        values=empty(), rewards=empty(), dones=empty(dtype=torch.bool),
+        terminated=empty(dtype=torch.bool), legal_masks=empty(A, dtype=torch.bool),
+        value_cats=empty(dtype=torch.int64), score_targets=empty(),
+        next_value_override=torch.full((rows, n), float("nan"), device=dev),
+        valid=empty(dtype=torch.bool) if valid else None)
+
+
+def write_row(traj: Trajectory, t: int, cols: slice, row: dict) -> None:
+    for name, value in row.items():
+        getattr(traj, name)[t, cols] = value
+
+
+@contextlib.contextmanager
+def ply(t: int):
+    with tracing.span("ply", index=t):
+        tracing.count("plies")
+        yield
+
+
+class Learner:
+    """The learner's forward in the `prepare(model)` / `fwd(weights, obs)`
+    protocol, prepared once per rollout call, and the draw of a move."""
+
+    def __init__(self, forward_fn, model, adapter, generator, num_channels: int):
+        self.fwd, self.weights = forward_fn, forward_fn.prepare(model)
+        self.adapter, self.generator, self.C = adapter, generator, num_channels
+
+    def out(self, obs):
+        return self.fwd(self.weights, obs.reshape(-1, self.C, 9, 9))
+
+    def value(self, obs):
+        """V(obs) to the side to move."""
+        return self.adapter.scalar_value_blended(self.out(obs))
+
+    def act(self, obs, masks, hook=None):
+        """(actions, log_probs, values) of the learner's forward over `obs`."""
+        with tracing.span("forward", device=obs.device):
+            out = self.out(obs)
+        return self.sample(out, masks, hook)
+
+    def sample(self, out, masks, hook=None):
+        """masked_policy_sample, looked up in this module at call time;
+        hook(masks), if given, forces the actions."""
+        with tracing.span("sample"):
+            forced = hook(masks) if hook is not None else None
+            return masked_policy_sample(out, masks, self.adapter, self.generator, actions=forced)
+
+
+def engine_step(env_core: EnvCore, env_states, actions):
+    with tracing.span("engine.step", device=env_core.device):
+        return env_core.step(env_states, actions)
+
+
+def truncation_bootstrap(mask: torch.Tensor, value_fn: Callable[[], torch.Tensor]):
+    """value_fn() if any env of `mask` needs the bootstrap (one host read),
+    else None."""
+    with tracing.span("truncation.check", sync=1):
+        cut = bool(mask.any())
+    if not cut:
+        return None
+    with tracing.span("truncation.forward"):
+        return value_fn()
+
+
+def ply_counts(eo, done, trunc, pre_stm, r_l=None, block=None, k: int = 0) -> torch.Tensor:
+    """(7 + 3k,) counts of a ply (`trunc`: cut, not terminated): RolloutStats' fields, then
+    for k opponent blocks (`block`: each column's) the learner's wins, losses, draws (`r_l`)."""
+    term = eo.terminated
+    win_b = ((eo.reward > 0) & (pre_stm == 0)) | ((eo.reward < 0) & (pre_stm == 1))
+    win_w = ((eo.reward > 0) & (pre_stm == 1)) | ((eo.reward < 0) & (pre_stm == 0))
+    base = torch.stack([
+        done.sum(), (win_b & term).sum(), (win_w & term).sum(), (term & (eo.reward == 0)).sum(),
+        term.sum(), trunc.sum(), torch.where(done, eo.ply_count, 0).sum()])
+    if not k:
+        return base
+    outcomes = torch.stack([term & (r_l > 0), term & (r_l < 0), term & (r_l == 0)]).long()
+    per_block = torch.zeros(3, k, dtype=torch.int64, device=outcomes.device)
+    per_block.index_add_(1, block, outcomes)
+    return torch.cat([base, per_block.reshape(-1)])
+
+
+def rollout_tail(value_fn: Callable[[], torch.Tensor], *counts: torch.Tensor):
+    """(value_fn() after the last ply, each of `counts` read to the host)."""
+    with tracing.span("forward.last"):
+        next_value = value_fn()
+    with tracing.span("rollout.stats", sync=len(counts)):
+        return next_value, [c.tolist() for c in counts]
+
+
 def make_selfplay_rollout(env_core: EnvCore, model: torch.nn.Module, adapter, num_steps: int,
                           forward_fn=None):
     """rollout(env_states, obs, masks, generator, sampler=None) ->
     ((env_states, obs, masks), traj, next_value, stats)."""
     fwd = forward_fn or EagerForward()
-    N, C, T = env_core.num_envs, env_core.num_channels, num_steps
+    N, C, A, T = env_core.num_envs, env_core.num_channels, env_core.action_space, num_steps
     dev = env_core.device
 
     @torch.no_grad()
     @tracing.traced("rollout")
     def rollout(env_states, obs, masks, generator: torch.Generator | None,
                 sampler: Sampler | None = None):
-        weights = fwd.prepare(model)
-        f32 = torch.float32
-
-        def empty(*shape, dtype=f32):
-            return torch.empty((T, N) + shape, dtype=dtype, device=dev)
-
-        traj = Trajectory(
-            obs=empty(C, 81), actions=empty(dtype=torch.int64), log_probs=empty(),
-            values=empty(), rewards=empty(), dones=empty(dtype=torch.bool),
-            terminated=empty(dtype=torch.bool),
-            legal_masks=empty(env_core.action_space, dtype=torch.bool),
-            value_cats=empty(dtype=torch.int64), score_targets=empty(),
-            next_value_override=torch.full((T, N), float("nan"), device=dev),
-        )
+        learner = Learner(fwd, model, adapter, generator, C)
+        traj = empty_trajectory(T, N, C, A, dev)
         counts = torch.zeros(7, dtype=torch.int64, device=dev)
         for t in range(T):
-            with tracing.span("ply", index=t):
-                tracing.count("plies")
-                with tracing.span("forward", device=dev):
-                    out = fwd(weights, obs.reshape(N, C, 9, 9))
-                with tracing.span("sample"):
-                    forced = sampler(t, masks) if sampler is not None else None
-                    actions, log_probs, values = masked_policy_sample(
-                        out, masks, adapter, generator, actions=forced)
+            with ply(t):
+                actions, log_probs, values = learner.act(
+                    obs, masks, functools.partial(sampler, t) if sampler is not None else None)
                 last_mover = env_states.stm.long()
-                with tracing.span("engine.step", device=dev):
-                    env_states, eo = env_core.step(env_states, actions)
+                env_states, eo = engine_step(env_core, env_states, actions)
                 dones = eo.terminated | eo.truncated
 
                 trunc_only = eo.truncated & ~eo.terminated
-                with tracing.span("truncation.check", sync=1):
-                    cut = bool(trunc_only.any())
-                if cut:
-                    with tracing.span("truncation.forward"):
-                        tout = fwd(weights, eo.terminal_obs.reshape(N, C, 9, 9))
-                        tv = adapter.scalar_value_blended(tout)
-                        traj.next_value_override[t] = torch.where(trunc_only, -tv, float("nan"))
+                tv = truncation_bootstrap(trunc_only, lambda: torch.where(
+                    trunc_only, -learner.value(eo.terminal_obs), float("nan")))
+                if tv is not None:
+                    traj.next_value_override[t] = tv
 
                 with tracing.span("store"):
-                    traj.obs[t] = obs
-                    traj.actions[t] = actions
-                    traj.log_probs[t] = log_probs
-                    traj.values[t] = values
-                    traj.rewards[t] = eo.reward
-                    traj.dones[t] = dones
-                    traj.terminated[t] = eo.terminated
-                    traj.legal_masks[t] = masks
-                    traj.value_cats[t] = compute_value_cats(eo.reward, eo.terminated)
-                    traj.score_targets[t] = eo.material.float() / SCORE_NORMALIZATION
-
-                    win_b = (((eo.reward > 0) & (last_mover == 0))
-                             | ((eo.reward < 0) & (last_mover == 1)))
-                    win_w = (((eo.reward > 0) & (last_mover == 1))
-                             | ((eo.reward < 0) & (last_mover == 0)))
-                    counts += torch.stack([
-                        dones.sum(), (win_b & eo.terminated).sum(),
-                        (win_w & eo.terminated).sum(), (eo.terminated & (eo.reward == 0)).sum(),
-                        eo.terminated.sum(), trunc_only.sum(),
-                        torch.where(dones, eo.ply_count, 0).sum(),
-                    ])
+                    write_row(traj, t, slice(None), dict(
+                        obs=obs, actions=actions, log_probs=log_probs, values=values,
+                        rewards=eo.reward, dones=dones, terminated=eo.terminated,
+                        legal_masks=masks, value_cats=compute_value_cats(eo.reward, eo.terminated),
+                        score_targets=eo.material.float() / SCORE_NORMALIZATION))
+                    counts += ply_counts(eo, dones, trunc_only, last_mover)
                 obs, masks = eo.obs, eo.legal_mask
 
         traj.next_value_override = alternating_perspective_overrides(
             traj.values, traj.terminated, traj.next_value_override)
-        with tracing.span("forward.last"):
-            out = fwd(weights, obs.reshape(N, C, 9, 9))
-            next_value = -adapter.scalar_value_blended(out)
-        with tracing.span("rollout.stats", sync=1):
-            stats = RolloutStats(*[int(v) for v in counts.tolist()])
-        return (env_states, obs, masks), traj, next_value, stats
+        next_value, (c,) = rollout_tail(lambda: -learner.value(obs), counts)
+        return (env_states, obs, masks), traj, next_value, RolloutStats.of(c)
 
     return rollout

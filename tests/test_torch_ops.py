@@ -24,7 +24,7 @@ import torch
 from keisei_tpu.ops.conv3x3 import conv3x3_hwbc as jax_conv3x3
 from keisei_tpu.ops import qblock as jax_qblock
 from keisei_tpu.ops.fused_block import fused_gpbias_block as jax_fused_block
-from keisei_tpu_torch.ops.conv3x3 import conv3x3_hwbc, pick_batch_tile
+from keisei_tpu_torch.ops.conv3x3 import conv3x3_hwbc
 from keisei_tpu_torch.ops.fused_block import fused_gpbias_block
 from keisei_tpu_torch.ops.qblock import (int8_batch_tile, pack_quantized, quantize_conv_weights,
                                          quantized_gpbias_block, unpack_dequantized)
@@ -96,12 +96,6 @@ def test_wrappers_reject_bad_operands():
     x = torch.zeros(9, 9, 2, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="mismatch"):
         conv3x3_hwbc(x, torch.zeros(3, 3, 4, 8, dtype=torch.bfloat16))
-
-
-def test_pick_batch_tile():
-    assert pick_batch_tile(1024) == 16
-    assert pick_batch_tile(8) == 8
-    assert pick_batch_tile(48, 32) == 24
 
 
 def _jax_interior(buf, ch):

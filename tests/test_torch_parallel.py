@@ -30,7 +30,7 @@ import _torch_parallel_ranks as R
 from keisei_tpu.parallel import distributed as JD
 from keisei_tpu_torch.parallel import distributed as D
 from keisei_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_env_batch
-from keisei_tpu_torch.parallel.placement import device_context, learner_device
+from keisei_tpu_torch.parallel.placement import learner_device
 from keisei_tpu_torch.training.config import load_config
 from keisei_tpu_torch.training.loop import SelfPlayTrainer
 
@@ -157,8 +157,7 @@ def test_mesh_layout_and_refusals():
     assert single.group is None and single.world_size == 1
     tree = {"keys": torch.ones(2)}
     assert D.broadcast_from_main(tree, single) is tree  # one rank: unchanged
-    with device_context("cpu"):  # the CPU needs no current card
-        assert learner_device("cpu", 3) == torch.device("cpu")
+    assert learner_device("cpu", 3) == torch.device("cpu")
 
 
 @pytest.mark.parametrize("mode", ["fused", "int8"])

@@ -6,6 +6,7 @@ self-play rollout, the PPO update and the trainer's epoch record the spans
 and counters the benchmark reads; and nothing the program computes changes
 with the tracer on."""
 
+import collections
 import time
 
 import pytest
@@ -16,6 +17,8 @@ from keisei_tpu_torch.env.vec_env import EnvCore
 from keisei_tpu_torch.models.registry import build_model, get_model_contract
 from keisei_tpu_torch.models.se_resnet import FlaxBatchNorm
 from keisei_tpu_torch.training.config import config_from_dict
+from keisei_tpu_torch.training.league_rollout import (compact_supported, make_league_rollout,
+                                                      parity_colors)
 from keisei_tpu_torch.training.loop import SelfPlayTrainer
 from keisei_tpu_torch.training.ppo import KataGoPPOParams, make_optimizer, make_ppo_update
 from keisei_tpu_torch.training.rollout import make_selfplay_rollout
@@ -161,28 +164,57 @@ def test_phases_share_their_stamps():
     assert abs(a["start_ns"] - time.time_ns()) < 10**9  # on the wall clock's nanoseconds
 
 
-def test_rollout_records_each_ply_and_its_counters(tracer):
-    _, _, _, stats = run_rollout()
+# the three rollout loops: (envs, cohort size K; None: self-play)
+LOOPS = {"selfplay": (N, None), "compact": (4, 2), "dynamic": (6, 3)}
+
+
+def run_loop(loop, seed=0):
+    """(envs, opponent blocks a ply, host reads of the stats, RolloutStats)."""
+    n, K = LOOPS[loop]
+    if K is None:
+        return n, 0, 1, run_rollout(seed)[3]
+    env = EnvCore(n, MAX_PLY, 50, "cpu")
+    opps = [tiny_model(seed + 1 + k).state_dict() for k in range(K)]
+    stacked = {name: torch.stack([sd[name] for sd in opps]) for name in opps[0]}
+    rollout = make_league_rollout(env, tiny_model(seed), adapter(), T, K)
+    compact = compact_supported(T, K)
+    assert compact == (loop == "compact")
+    colors = parity_colors(n) if compact else torch.arange(n) % 2
+    stats = rollout(stacked, *env.init(), colors, torch.Generator().manual_seed(seed))[3]
+    return n, K // 2 if compact else K, 2 if compact else 1, stats.base
+
+
+@pytest.mark.parametrize("loop", list(LOOPS))
+def test_rollout_records_each_ply_and_its_counters(tracer, loop):
+    """Each loop's plies come from the shared ply pieces: the same span tree
+    and counters, the league's plies adding its opponents' forwards."""
+    n, opp_blocks, stats_syncs, stats = run_loop(loop)
     spans = tracer.spans()
     (rollout,) = by_name(spans, "rollout")
     plies = by_name(spans, "ply")
     assert [p["index"] for p in plies] == list(range(T))
     assert all(p["parent"] == rollout["id"] for p in plies)
-    cut = 0
+    cut = []
     for p in plies:
-        names = [c["name"] for c in children(spans, p)]
-        assert len(names) == len(set(names)) and set(names) - {"truncation.forward"} \
-            == PLY_CHILDREN, names
-        cut += "truncation.forward" in names
-    assert cut == 2 and stats.truncated == 2 * N
+        names = collections.Counter(c["name"] for c in children(spans, p))
+        if names.pop("truncation.forward", 0) == 1:
+            cut.append(p["index"])
+        # one sample per forward, the learner's and each opponent block's
+        assert names == collections.Counter(
+            {**dict.fromkeys(PLY_CHILDREN, 1), "sample": 1 + opp_blocks,
+             "forward.opponent": opp_blocks}), names
+    assert cut == [MAX_PLY - 1, 2 * MAX_PLY - 1] and stats.truncated == 2 * n
     assert {c["name"] for c in children(spans, rollout)} == {"ply", "forward.last",
                                                              "rollout.stats"}
     assert [s["sync"] for s in by_name(spans, "truncation.check")] == [1] * T
+    assert [s["sync"] for s in by_name(spans, "rollout.stats")] == [stats_syncs]
     c = tracer.counters()
-    assert c["plies"] == T and c["host_syncs"] == T + 1
-    assert c["host_syncs.truncation.check"] == T and c["host_syncs.rollout.stats"] == 1
+    assert c["plies"] == T and c["host_syncs"] == T + stats_syncs
+    assert c["host_syncs.truncation.check"] == T
+    assert c["host_syncs.rollout.stats"] == stats_syncs
     assert (len(by_name(spans, "forward")), len(by_name(spans, "truncation.forward")),
-            len(by_name(spans, "forward.last"))) == (T, cut, 1)
+            len(by_name(spans, "forward.last")), len(by_name(spans, "forward.opponent"))) \
+        == (T, len(cut), 1, T * opp_blocks)
     assert all("device_ms" not in s for s in spans)  # CUDA events: on a card alone
 
 
